@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
-then runs three phases, one output line each:
+checks that the package's constructors default to the card, then runs
+three phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
-   float64 plain result as the reference;
+   float64 plain result as the reference; the grouped evaluation kernel
+   also at the index patterns that stress its grouping tables, and twice
+   for bit-identical outputs;
 2. the main path at full size (d=50 cores, mode n=32, rank r=100, f32):
    build two trains, pack, inner product and norm, fixed-rank rounding
    of ``a + a``, evaluation at 8192 points -- with the kernels' launch
    counters reset just before and read just after;
-3. kernel and plain timings at the main path's shapes (CUDA events).
+3. timings at the main path's shapes (CUDA events): each kernel against
+   its plain version and its bound (the larger of bytes over 3.35 TB/s
+   and FP32 operations over 67 TFLOP/s, the H100's published peaks),
+   and the grouped evaluation against the per-point kernel it replaced
+   at 8192, 1000 and 300 points.
 
 Then a JSON line with per-kernel results, the card's name and power
 limit from ``nvidia-smi``, and, last, the result line
@@ -35,6 +42,8 @@ import torch
 
 SEED = 1234
 D, N, R, B = 50, 32, 100, 8192
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores, published
 
 
 def _rand(g, *shape, scale=1.0, dtype=torch.float32):
@@ -102,21 +111,44 @@ def phase_kernels_vs_plain(zp, ev, dev):
                     worst["inner"] = max(worst["inner"], err / tol[dt])
                     checks += 1
 
-    # (d, n, r, B, pattern): point values O(1) with mids scaled 1/sqrt(r)
-    for d, n, r, bsz, pattern in [(D, N, R, B, "random"), (D, N, R, 1000, "random"),
-                                  (D, N, R, 1000, "one-mode"), (7, 5, 37, 1000, "random"),
-                                  (10, 8, 256, 1000, "random"), (4, 4, 512, 300, "random")]:
-        cores64 = _train(g, d, n, r, 1 / math.sqrt(r), dtype=torch.float64)
-        if pattern == "one-mode":
-            idx = torch.full((bsz, d), 3, device=dev, dtype=torch.int32)
-        else:
-            idx = torch.randint(0, n, (bsz, d), generator=g, device=dev,
-                                dtype=torch.int32)
+    # (d, n, r, B, pattern): point values O(1) with mids scaled 1/sqrt(r).
+    # Beside the main path's shape: one group of 8192 points (many tiles
+    # of one slice), every point of a step in its own mode, one point,
+    # batches that are no multiple of the tile, a mode without a point,
+    # d = 2 and d = 3, the scalar-load path (r = 37), the rank envelope,
+    # two modes, and more modes than points in most groups.
+    tile = ev.TILE_P
+    cases = [(D, N, R, B, "random"), (D, N, R, B, "one-mode"),
+             (D, N, R, 1000, "random"), (D, N, R, 300, "random"),
+             (9, N, R, 20, "distinct"), (D, N, R, 1, "random"),
+             (7, 5, 37, 1000, "random"), (7, 5, 37, tile + 1, "skip-mode"),
+             (2, 6, 40, 500, "random"), (3, 6, 40, 500, "random"),
+             (10, 8, 256, 1000, "random"), (4, 4, 512, 300, "random"),
+             (8, 2, 64, 777, "random"), (6, 300, 48, 2000, "random")]
+    for d, n, r, bsz, pattern in cases:
+        first, mids, last = _train(g, max(d, 3), n, r, 1 / math.sqrt(r),
+                                   dtype=torch.float64)
+        cores64 = (first, mids if d > 2 else None, last)
+        idx = _points(g, pattern, bsz, d, n)
         ref = ev.tt_evaluate_plain(*cores64, idx)
         scale = ref.abs().max().item()
+        if d > 2:  # the tile-list kernel against its torch version, exactly
+            vals = torch.sort(idx[:, 1:-1].t().contiguous(), dim=1, stable=True)[0]
+            slots = ev.max_tiles_per_step(bsz, n)
+            if not torch.equal(ev.group_tiles_cuda(vals, n, tile, slots),
+                               ev.group_tiles_plain(vals, n, tile, slots)):
+                raise AssertionError(
+                    f"tile list d={d} n={n} B={bsz} {pattern}: kernel != plain")
+            checks += 1
         for dt in (torch.float32, torch.float64):
-            cores = [x.to(dt).contiguous() for x in cores64]
-            for name, val in (("kernel", ev.tt_evaluate_cuda(*cores, idx)),
+            cores = [None if x is None else x.to(dt).contiguous() for x in cores64]
+            got = ev.tt_evaluate_cuda(*cores, idx)
+            if not torch.equal(got, ev.tt_evaluate_cuda(*cores, idx)):
+                raise AssertionError(
+                    f"evaluate d={d} n={n} r={r} B={bsz} {pattern} {dt}: "
+                    "two calls differ")
+            for name, val in (("kernel", got),
+                              ("per-point", ev.tt_evaluate_per_point_cuda(*cores, idx)),
                               ("plain", ev.tt_evaluate_plain(*cores, idx))):
                 err = (val.double() - ref).abs().max().item() / scale
                 if not err <= tol[dt]:
@@ -125,9 +157,55 @@ def phase_kernels_vs_plain(zp, ev, dev):
                         f"{pattern} {dt}: max err / max|ref| = {err:.3e}")
                 worst["evaluate"] = max(worst["evaluate"], err / tol[dt])
                 checks += 1
+    if ev.tt_evaluate_cuda(*cores, idx[:0]).shape != (0,):
+        raise AssertionError("evaluate at B=0 must return an empty vector")
     torch.cuda.synchronize()
     print(f"phase 1 kernels vs plain: ok, {checks} checks, worst err/tol "
           f"inner {worst['inner']:.3g} evaluate {worst['evaluate']:.3g}")
+
+
+def _points(g, pattern, bsz, d, n):
+    """(bsz, d) int32 evaluation points on the generator's device."""
+    dev = g.device
+    if pattern == "one-mode":
+        # one group of bsz points at every step; the end indices vary, so
+        # the values do and max|ref| is no single ill-conditioned product
+        idx = torch.randint(0, n, (bsz, d), generator=g, device=dev, dtype=torch.int32)
+        idx[:, 1:-1] = min(3, n - 1)
+        return idx
+    if pattern == "distinct":  # bsz <= n: every group holds one point
+        rows = torch.arange(bsz, device=dev)[:, None]
+        steps = torch.arange(d, device=dev)[None, :]
+        return ((rows + steps) % n).to(torch.int32)
+    idx = torch.randint(0, n, (bsz, d), generator=g, device=dev, dtype=torch.int32)
+    if pattern == "skip-mode":  # mode 1 holds no point at any step
+        idx = torch.where(idx == 1, torch.zeros_like(idx), idx)
+    return idx
+
+
+def phase_default_device():
+    """Constructors called without a device put their tensors on the card."""
+    import tensor_networks_tpu_torch as tnt
+
+    inds = [tnt.Index(f"x{k}", 3) for k in range(4)]
+    net = tnt.TensorNetwork.rand_tt(inds, [2, 2, 2])
+    meta, arrays = net.to_separated_dict()
+    made = {
+        "rand_tt": [net.value(k) for k in range(4)],
+        "from_dict": [tnt.TensorNetwork.from_dict(net.to_dict()).value(0)],
+        "from_separated_dict": [
+            tnt.TensorNetwork.from_separated_dict(meta, arrays).value(0)],
+        "Tensor.from_dict": [tnt.Tensor.from_dict(net.node_tensor(1).to_dict()).value],
+        "packed.from_numpy": list(tnt.packed.from_numpy(
+            np.zeros((3, 2)), np.zeros((2, 2, 3, 2)), np.zeros((2, 3)))),
+    }
+    for name, tensors in made.items():
+        if not all(t.is_cuda for t in tensors):
+            raise AssertionError(f"{name} without a device did not use the card")
+    if tnt.TensorNetwork.rand_tt(inds, [2, 2, 2], device="cpu").value(0).is_cuda:
+        raise AssertionError("rand_tt(device='cpu') must stay on the CPU")
+    print(f"default device: ok, {len(made)} constructors on "
+          f"{made['rand_tt'][0].device}")
 
 
 def phase_main_path(zp, ev, dev):
@@ -146,8 +224,11 @@ def phase_main_path(zp, ev, dev):
     end = (1e24 / (N * N * R)) ** 0.25
     trains = []
     for _ in range(2):
+        # no device named: the cores land on the card
         tn = TensorNetwork.rand_tt(inds, [R] * (D - 1), dtype=torch.float32,
-                                   device=dev, generator=g)
+                                   generator=g)
+        if not all(tn.value(k).is_cuda for k in range(D)):
+            raise AssertionError("rand_tt without a device did not use the card")
         for k in range(D):
             t = tn.node_tensor(k)
             s = end if k in (0, D - 1) else 1 / math.sqrt(N * R)
@@ -160,6 +241,7 @@ def phase_main_path(zp, ev, dev):
     torch.cuda.synchronize()
     zp.tt_inner_cuda.launches = 0
     ev.tt_evaluate_cuda.launches = 0
+    ev.group_tiles_cuda.launches = 0
     t0 = time.perf_counter()
     pa, pb = packed.pack(a), packed.pack(b)
     ip = packed.inner(pa, pb)
@@ -176,10 +258,13 @@ def phase_main_path(zp, ev, dev):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = {"zipper": zp.tt_inner_cuda.launches,
-                "evaluate": ev.tt_evaluate_cuda.launches}
+                "evaluate": ev.tt_evaluate_cuda.launches,
+                "tiles": ev.group_tiles_cuda.launches}
 
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    if launches != {"zipper": 3, "evaluate": 3, "tiles": 3}:
+        raise AssertionError(
+            "the main path makes 3 inner products and 3 evaluations, each "
+            f"with one tile list: {launches}")
     # f64 plain references on the same cores
     fa, ma, la = _f64(*stack(pa))
     fb, mb, lb = _f64(*stack(pb))
@@ -235,26 +320,108 @@ def stack(p):
     return p.first, p.mids, p.last
 
 
-def phase_timings(zp, ev, pa, pb_like, idx):
-    """Kernel vs plain at the main path's shapes, turns P K K P."""
+def _bound(flops, nbytes):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _inner_bound(a, b):
+    """The zipper's bound: W0 = fa^T fb, two GEMMs per core pair, the
+    epilogue <W, la lb^T>; every core read once, one scalar written."""
+    n0, ra = a[0].shape
+    rb = b[0].shape[1]
+    d_mid, _, n, _ = a[1].shape
+    nl = a[2].shape[1]
+    flops = 2 * n0 * ra * rb + d_mid * (2 * rb * n * ra * ra + 2 * ra * rb * rb * n)
+    flops += 2 * ra * rb * nl + 2 * ra * rb
+    nbytes = sum(x.numel() * x.element_size() for x in a + b) + a[0].element_size()
+    return _bound(flops, nbytes)
+
+
+def _evaluate_bound(cores, idx):
+    """The evaluation's bound for these points: B (d-2) r^2 FMAs and the
+    final dots; only the slices and end-core rows some point selects are
+    read (once), plus the indices; B values written."""
+    first, mids, last = cores
+    bsz, d = idx.shape
+    r = first.shape[1]
+    flops = 2 * bsz * (d - 2) * r * r + 2 * bsz * r
+    used = [len(torch.unique(idx[:, k])) for k in range(d)]
+    item = first.element_size()
+    nbytes = item * r * (used[0] + used[-1] + r * sum(used[1:-1]))
+    nbytes += idx.numel() * idx.element_size() + bsz * item
+    return _bound(flops, nbytes)
+
+
+def phase_timings(zp, ev, pa, pb_like, idx, launches):
+    """Kernel vs plain at the main path's shapes, turns P K K P; the
+    grouped evaluation vs the per-point kernel at three batch sizes."""
     a = list(stack(pa))
     b = list(stack(pb_like))
     idx32 = idx.to(torch.int32).contiguous()
+    tables = ev.build_group_tables(idx32, a[0].shape[0])
     inner_k = lambda: zp.tt_inner_cuda(*a, *b)  # noqa: E731
     inner_p = lambda: zp.tt_inner_plain(*a, *b)  # noqa: E731
     eval_k = lambda: ev.tt_evaluate_cuda(*a, idx32)  # noqa: E731
     eval_p = lambda: ev.tt_evaluate_plain(*a, idx32)  # noqa: E731
+    n = a[0].shape[0]
+    vals = torch.sort(idx32[:, 1:-1].t().contiguous(), dim=1, stable=True)[0]
+    slots = ev.max_tiles_per_step(idx32.shape[0], n)
+    tiles_k = lambda: ev.group_tiles_cuda(vals, n, ev.TILE_P, slots)  # noqa: E731
+    tiles_p = lambda: ev.group_tiles_plain(vals, n, ev.TILE_P, slots)  # noqa: E731
+    # the tile list does no arithmetic to speak of: sorted rows in, tiles out
+    tile_bytes = vals.numel() * 4 + vals.shape[0] * slots * 16
+    bounds = {"inner": _inner_bound(a, b), "evaluate": _evaluate_bound(a, idx32),
+              "tiles": _bound(0, tile_bytes)}
     res = {}
-    for name, k, p in (("inner", inner_k, inner_p), ("evaluate", eval_k, eval_p)):
+    for name, k, p in (("inner", inner_k, inner_p), ("evaluate", eval_k, eval_p),
+                       ("tiles", tiles_k, tiles_p)):
         tp1, tk1, tk2, tp2 = _time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)
         err = (k().double() - p().double()).abs().max().item()
         res[name] = {"ms": (tk1 + tk2) / 2, "plain_ms": (tp1 + tp2) / 2,
-                     "runs_ms": [tp1, tk1, tk2, tp2], "max_abs_err": err}
+                     "runs_ms": [tp1, tk1, tk2, tp2], "max_abs_err": err,
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
     print("phase 3 timings (ms, order plain kernel kernel plain): "
           + "; ".join(f"{k} kernel {v['ms']:.4f} plain {v['plain_ms']:.4f} runs "
                       + ",".join(f"{x:.4f}" for x in v["runs_ms"])
                       for k, v in res.items()))
+    for name, key in (("inner", "zipper"), ("evaluate", "evaluate"),
+                      ("tiles", "tiles")):
+        v = res[name]
+        print(f"  {name}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+              f"bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
+              f"({100 * v['bound_ms'] / v['ms']:.1f}% of it reached), "
+              f"{launches[key]} launches on the main path, library call: none "
+              + ("(no single PyTorch call computes a d-step chain)"
+                 if name != "tiles" else "(the plain version is ~25 PyTorch calls)"))
+    # the evaluation's parts, and the per-point kernel it replaced (one
+    # warp per point, each reading its own slice), turns G O O G
+    t_tables = _time_ms(lambda: ev.build_group_tables(idx32, n).tiles)
+    t_steps = _time_ms(lambda: ev.tt_evaluate_cuda(*a, idx32, tables))
+    print(f"  evaluate parts: grouping tables {t_tables:.4f} ms, kernels with "
+          f"tables given {t_steps:.4f} ms "
+          f"({100 * res['evaluate']['bound_ms'] / t_steps:.1f}% of the bound)")
+    for bsz in (B, 1000, 300):
+        sub = idx32[:bsz].contiguous()
+        grouped = lambda: ev.tt_evaluate_cuda(*a, sub)  # noqa: E731
+        old = lambda: ev.tt_evaluate_per_point_cuda(*a, sub)  # noqa: E731
+        runs = [_time_ms(grouped), _time_ms(old), _time_ms(old), _time_ms(grouped)]
+        print(f"  evaluate B={bsz}: grouped {(runs[0] + runs[3]) / 2:.4f} ms, "
+              f"per-point {(runs[1] + runs[2]) / 2:.4f} ms, runs "
+              + ",".join(f"{x:.4f}" for x in runs))
+        if bsz == B:
+            res["evaluate"]["per_point_ms"] = (runs[1] + runs[2]) / 2
     return res
+
+
+def _kernel_numbers(t):
+    """The measured part of a kernel's entry; no single PyTorch call
+    computes a chain of d-2 dependent steps or the tile list, so
+    library_ms is null."""
+    return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
 
 
 def main() -> int:
@@ -276,26 +443,31 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.cuda_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.NVCC_FLAGS[1]})")
+    print(f"card: {card}")
 
+    phase_default_device()
     phase_kernels_vs_plain(zp, ev, dev)
     launches, pa, idx = phase_main_path(zp, ev, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     pb = tnt.packed.PackedTT(*_train(g, D, N, R, 1 / math.sqrt(N * R)))
-    times = phase_timings(zp, ev, pa, pb, idx)
+    times = phase_timings(zp, ev, pa, pb, idx, launches)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 (tt_inner_pallas), "
                      "tensor_networks_tpu/kernels/pallas_ops.py:229 (tt_inner_pallas_fused)",
-         "launches": launches["zipper"], "max_abs_err": times["inner"]["max_abs_err"],
-         "ms": times["inner"]["ms"], "plain_ms": times["inner"]["plain_ms"]},
+         "launches": launches["zipper"], **_kernel_numbers(times["inner"])},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 (tt_evaluate_pallas), "
                      "tensor_networks_tpu/kernels/ragged_eval.py:107 (tt_evaluate_ragged)",
-         "launches": launches["evaluate"], "max_abs_err": times["evaluate"]["max_abs_err"],
-         "ms": times["evaluate"]["ms"], "plain_ms": times["evaluate"]["plain_ms"]},
+         "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"])},
+        {"name": "group_tiles_cuda", "route": "cuda",
+         "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
+         "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (the group counts "
+                     "of tt_evaluate_ragged, XLA ops there)",
+         "launches": launches["tiles"], **_kernel_numbers(times["tiles"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,8 +8,10 @@ kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
 
 This package imports neither JAX nor ``tensor_networks_tpu`` and sets no
-global torch state: dtypes and devices are explicit wherever something is
-created, and randomness comes from an explicit ``torch.Generator``.
+global torch state.  Constructors place their tensors on the card unless
+the caller names another device (``device="cpu"``, as the CPU tests do;
+see :func:`resolve_device`); functions of tensors follow their inputs.
+Randomness comes from an explicit ``torch.Generator`` where one is given.
 """
 
 from tensor_networks_tpu_torch.types import (
@@ -18,6 +20,7 @@ from tensor_networks_tpu_torch.types import (
     IntOrStr,
     NodeName,
     SVDConfig,
+    resolve_device,
 )
 from tensor_networks_tpu_torch.dimtree import DimTreeNode, NodeInfo
 from tensor_networks_tpu_torch.kernels import TruncSVD, delta_svd
@@ -40,6 +43,7 @@ __all__ = [
     "IntOrStr",
     "NodeName",
     "SVDConfig",
+    "resolve_device",
     "DimTreeNode",
     "NodeInfo",
     "TruncSVD",

@@ -113,6 +113,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         # first mids last idx out, B d n r, stream
         fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
         fn.restype = _INT
+        fn = getattr(lib, f"tnt_evaluate_grouped_{suffix}")
+        # first mids last idx perm tiles carry0 carry1 out,
+        # B d n r max_tiles tile_p, stream
+        fn.argtypes = [_PTR] * 9 + [_INT] * 6 + [_PTR]
+        fn.restype = _INT
+    # vals tiles, B d_mid n max_tiles tile_p, stream
+    lib.tnt_group_tiles.argtypes = [_PTR] * 2 + [_INT] * 5 + [_PTR]
+    lib.tnt_group_tiles.restype = _INT
     lib.tnt_error_string.argtypes = [_INT]
     lib.tnt_error_string.restype = ctypes.c_char_p
 

@@ -62,6 +62,11 @@ def _lib() -> Optional[ctypes.CDLL]:
         return _LIB
 
 
+def native_available() -> bool:
+    """Whether the native optimizer built and loaded."""
+    return _lib() is not None
+
+
 def optimal_path(
     operand_ids: Sequence[Sequence[int]],
     out_ids: Sequence[int],

@@ -25,7 +25,13 @@ from tensor_networks_tpu_torch.dimtree import DimTreeNode, NodeInfo
 from tensor_networks_tpu_torch.graph import Graph
 from tensor_networks_tpu_torch.planner import contract_values
 from tensor_networks_tpu_torch.tensor import Tensor
-from tensor_networks_tpu_torch.types import Index, IndexName, IntOrStr, NodeName
+from tensor_networks_tpu_torch.types import (
+    Index,
+    IndexName,
+    IntOrStr,
+    NodeName,
+    resolve_device,
+)
 
 _EVAL_CHUNK = 65536
 
@@ -485,11 +491,13 @@ class TensorNetwork:
         generator: Optional[torch.Generator] = None,
     ) -> "TensorNetwork":
         """A random tensor train with the given mode indices and bond
-        ranks; standard-normal cores drawn from ``generator`` (which must
-        live on ``device``)."""
+        ranks; standard-normal cores on ``device`` (default: the card),
+        drawn from ``generator`` (which must live on that device) or,
+        without one, from the device's default generator."""
         dim = len(indices)
         assert len(ranks) + 1 == len(indices)
         tt = TensorNetwork()
+        device = resolve_device(device)
 
         def randn(*shape):
             return torch.randn(
@@ -597,7 +605,10 @@ class TensorNetwork:
     def from_dict(
         cls, data_dict: dict, device=None, dtype=None
     ) -> "TensorNetwork":
+        """Rebuild from :meth:`to_dict` output, placing the values on
+        ``device`` (default: the card) as ``dtype``."""
         tn = cls()
+        device = resolve_device(device)
         for entry in data_dict["nodes"]:
             name = entry["id"]
             tn.network.add_node(name)
@@ -641,8 +652,8 @@ class TensorNetwork:
         dtype=None,
     ) -> "TensorNetwork":
         """Rebuild a network from :meth:`to_separated_dict` output of
-        either package, placing the values on ``device`` as ``dtype``
-        (default: the arrays' own dtype).  ``metadata`` is not modified."""
+        either package, placing the values on ``device`` (default: the
+        card) as ``dtype`` (default: the arrays' own dtype).  ``metadata`` is not modified."""
         metadata = copy.deepcopy(metadata)
         for entry in metadata["nodes"]:
             node_id = entry["id"]

@@ -22,7 +22,7 @@ from tensor_networks_tpu_torch.kernels.zipper import tt_inner, tt_inner_plain
 from tensor_networks_tpu_torch.network import TensorNetwork
 from tensor_networks_tpu_torch.ops.fast import stack_tt_cores
 from tensor_networks_tpu_torch.tensor import Tensor
-from tensor_networks_tpu_torch.types import Index
+from tensor_networks_tpu_torch.types import Index, resolve_device
 
 
 class PackedTT(NamedTuple):
@@ -57,7 +57,9 @@ def pack(tn: TensorNetwork, dtype: Optional[torch.dtype] = None) -> PackedTT:
 
 def from_numpy(first, mids, last, device=None, dtype=None) -> PackedTT:
     """A PackedTT from NumPy arrays (e.g. the JAX package's packed cores,
-    fetched with ``np.asarray``), placed on ``device`` as ``dtype``."""
+    fetched with ``np.asarray``), placed on ``device`` (default: the
+    card) as ``dtype``."""
+    device = resolve_device(device)
     return PackedTT(
         *(
             torch.tensor(np.asarray(x), device=device, dtype=dtype)

@@ -19,7 +19,7 @@ import torch
 
 from tensor_networks_tpu_torch.kernels import delta_svd, qr_reduced
 from tensor_networks_tpu_torch.planner import contract_values
-from tensor_networks_tpu_torch.types import Index, IntOrStr
+from tensor_networks_tpu_torch.types import Index, IntOrStr, resolve_device
 
 
 @dataclass
@@ -50,11 +50,15 @@ class Tensor:
     def from_dict(
         cls, data_dict: dict, device=None, dtype=None
     ) -> "Tensor":
+        """Rebuild from :meth:`to_dict` output, placing the value on
+        ``device`` (default: the card) as ``dtype``."""
         indices = [Index.from_dict(d) for d in data_dict["indices"]]
         # a copy: the network must not alias the caller's (possibly
         # read-only) array
         value = torch.tensor(
-            np.asarray(data_dict["value"]), device=device, dtype=dtype
+            np.asarray(data_dict["value"]),
+            device=resolve_device(device),
+            dtype=dtype,
         )
         return cls(value=value, indices=indices)
 

@@ -3,7 +3,8 @@
 Host-side metadata types: named indices and SVD configuration.  These
 objects never live on a device; they describe the *structure* that the
 torch code (see :mod:`tensor_networks_tpu_torch.kernels`) operates over.
-Taken over unchanged from ``tensor_networks_tpu/types.py``.
+Taken over from ``tensor_networks_tpu/types.py``; :func:`resolve_device`
+(the package's default-device rule) has no counterpart there.
 
 Parity reference: ``pytens/types.py`` (Index :19, SVDConfig :60).  The
 dimension-tree machinery lives in :mod:`tensor_networks_tpu_torch.dimtree`.
@@ -17,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -24,6 +26,20 @@ IntOrStr = Union[str, int]
 IndexName = IntOrStr
 IndexChain = Union[List[int], Tuple[int, ...]]
 NodeName = IntOrStr
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a constructor places its tensors on.
+
+    ``None`` means the card, ``torch.device("cuda")``: the package runs
+    on the GPU unless the caller names another device.  Nothing here
+    looks for a GPU: on a machine without one the first allocation
+    raises torch's own error.  Anything else goes through
+    ``torch.device``.
+    """
+    if device is None:
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 @dataclass(frozen=True)

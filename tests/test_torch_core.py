@@ -4,19 +4,26 @@ Index, Graph, dimension trees, the contraction planner, Tensor and
 TensorNetwork get identical inputs in both packages (networks move
 across through the separated-dict format) and must agree to 1e-12
 relative: both sides run the same algorithms in f64, so only summation
-order differs.
+order differs.  The port's constructors default to the card, so every
+constructor call here names ``device="cpu"``.
 """
 
 import copy
 
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
+import opt_einsum as oe
 import pytest
 import torch
 
 import tensor_networks_tpu as jtn
+from tensor_networks_tpu import native as jnative
 from tensor_networks_tpu import planner as jplanner
 import tensor_networks_tpu_torch as ttn
+from tensor_networks_tpu_torch import native as tnative
 from tensor_networks_tpu_torch import planner as tplanner
 from tensor_networks_tpu_torch.graph import Graph as TGraph
 from tensor_networks_tpu.graph import Graph as JGraph
@@ -38,7 +45,9 @@ def _keys(indices):
 
 
 def _to_port(jnet):
-    return ttn.TensorNetwork.from_separated_dict(*jnet.to_separated_dict())
+    return ttn.TensorNetwork.from_separated_dict(
+        *jnet.to_separated_dict(), device="cpu"
+    )
 
 
 def _jax_tt(seed, d=5, n=4, r=3):
@@ -122,9 +131,27 @@ def test_planner_matches_jax(spec, out):
     _close(got, ref)
 
 
+def _path_flops(expression, shapes, path):
+    """Multiply-add count of a frozen pairwise path (opt_einsum's count,
+    the one the subset DP minimizes)."""
+    _, info = oe.contract_path(
+        expression, *shapes, shapes=True, optimize=[tuple(p) for p in path]
+    )
+    return info.opt_cost
+
+
 def test_planner_native_path_and_cache():
-    """Up to 18 operands both packages take the native subset DP, so the
-    frozen paths are identical; the plan is cached per signature."""
+    """Up to 18 operands the port takes the native subset DP, which is
+    exact; the plan is cached per signature.
+
+    Where the JAX package's native optimizer loaded too, both frozen
+    paths are identical.  It may not have: that package compiles its
+    library in place, next to the source, so under parallel test workers
+    one process can load a half-written file, give up and plan with
+    opt_einsum for the rest of its life.  Then the port's path is held
+    to the DP's guarantee instead: no more flops than the JAX plan's.
+    """
+    assert tnative.native_available()
     jnet, _ = _jax_tt(3, d=4)
     tnet = _to_port(jnet)
     pair = tnet.attach(tnet)
@@ -134,7 +161,12 @@ def test_planner_native_path_and_cache():
     tplanner.clear_cache()
     plan = tplanner.get_contraction(ids[:-1], ids[-1], shapes, torch.float64)
     jplan = jplanner.get_contraction(ids[:-1], ids[-1], shapes, np.float64)
-    assert plan.path == [tuple(p) for p in jplan.path]
+    assert plan.path is not None and len(plan.path) == len(shapes) - 1
+    if jnative.native_available():
+        assert plan.path == [tuple(p) for p in jplan.path]
+    assert _path_flops(jplan.expression, shapes, plan.path) <= _path_flops(
+        jplan.expression, shapes, jplan.path
+    )
     assert tplanner.get_contraction(ids[:-1], ids[-1], shapes, torch.float64) is plan
     assert tplanner.cache_size() == 1
 
@@ -228,7 +260,7 @@ def test_network_ops_match_jax(kind):
 def test_separated_dict_round_trip_is_exact():
     jnet, _ = _jax_tt(11)
     meta, arrays = jnet.to_separated_dict()
-    tnet = ttn.TensorNetwork.from_separated_dict(meta, arrays)
+    tnet = ttn.TensorNetwork.from_separated_dict(meta, arrays, device="cpu")
     assert "tensor_indices" in meta["nodes"][0]  # caller's dict untouched
     for n in jnet.network.nodes:
         assert np.array_equal(tnet.value(n).numpy(), np.asarray(jnet.value(n)))
@@ -239,7 +271,9 @@ def test_separated_dict_round_trip_is_exact():
     for n in jnet.network.nodes:
         assert np.array_equal(np.asarray(back.value(n)), np.asarray(jnet.value(n)))
 
-    f32 = ttn.TensorNetwork.from_separated_dict(meta, arrays, dtype=torch.float32)
+    f32 = ttn.TensorNetwork.from_separated_dict(
+        meta, arrays, device="cpu", dtype=torch.float32
+    )
     assert all(f32.value(n).dtype == torch.float32 for n in jnet.network.nodes)
 
 
@@ -247,9 +281,83 @@ def test_rand_tt_uses_the_generator():
     inds = [ttn.Index(f"x{k}", 3) for k in range(4)]
     nets = [
         ttn.TensorNetwork.rand_tt(
-            inds, [2, 2, 2], generator=torch.Generator().manual_seed(5)
+            inds,
+            [2, 2, 2],
+            device="cpu",
+            generator=torch.Generator().manual_seed(5),
         )
         for _ in range(2)
     ]
     assert nets[0].value(1).dtype == torch.float64
     assert all(torch.equal(nets[0].value(k), nets[1].value(k)) for k in range(4))
+
+
+def test_resolve_device_defaults_to_the_card():
+    assert ttn.resolve_device(None) == torch.device("cuda")
+    assert ttn.resolve_device() == torch.device("cuda")
+    assert ttn.resolve_device("cpu") == torch.device("cpu")
+    assert ttn.resolve_device(torch.device("cpu")) == torch.device("cpu")
+    assert ttn.resolve_device("cuda:1") == torch.device("cuda", 1)
+
+
+def _constructors_without_a_device():
+    inds = [ttn.Index(f"x{k}", 3) for k in range(4)]
+    net = ttn.TensorNetwork.rand_tt(inds, [2, 2, 2], device="cpu")
+    meta, arrays = net.to_separated_dict()
+    packed = [np.zeros((3, 2)), np.zeros((2, 2, 3, 2)), np.zeros((2, 3))]
+    return {
+        "rand_tt": lambda: ttn.TensorNetwork.rand_tt(inds, [2, 2, 2]),
+        "from_dict": lambda: ttn.TensorNetwork.from_dict(net.to_dict()),
+        "from_separated_dict": lambda: ttn.TensorNetwork.from_separated_dict(
+            meta, arrays
+        ),
+        "Tensor.from_dict": lambda: ttn.Tensor.from_dict(
+            net.node_tensor(0).to_dict()
+        ),
+        "packed.from_numpy": lambda: ttn.packed.from_numpy(*packed),
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["rand_tt", "from_dict", "from_separated_dict", "Tensor.from_dict",
+     "packed.from_numpy"],
+)
+def test_constructors_without_a_device_need_the_card(name):
+    """With no device named a constructor allocates on the card; on a
+    machine without one torch's own error comes up (no quiet CPU run)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default succeeds here")
+    build = _constructors_without_a_device()[name]
+    with pytest.raises((RuntimeError, AssertionError)):
+        build()
+
+
+def test_constructors_honour_a_named_device():
+    inds = [ttn.Index(f"x{k}", 3) for k in range(4)]
+    net = ttn.TensorNetwork.rand_tt(inds, [2, 2, 2], device="cpu")
+    assert all(net.value(k).device.type == "cpu" for k in range(4))
+    again = ttn.TensorNetwork.from_dict(net.to_dict(), device="cpu")
+    assert all(torch.equal(again.value(k), net.value(k)) for k in range(4))
+    one = ttn.Tensor.from_dict(net.node_tensor(1).to_dict(), device="cpu")
+    assert one.value.device.type == "cpu"
+    pk = ttn.packed.from_numpy(
+        np.zeros((3, 2)), np.zeros((2, 2, 3, 2)), np.zeros((2, 3)),
+        device="cpu",
+    )
+    assert all(x.device.type == "cpu" for x in pk)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """A fresh interpreter that imports the port and every module of it
+    has loaded no ``jax`` and no ``tensor_networks_tpu``."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import tensor_networks_tpu_torch as t\n"
+        "for m in pkgutil.walk_packages(t.__path__, t.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'tensor_networks_tpu' or m.startswith('tensor_networks_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True)

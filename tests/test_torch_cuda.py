@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from tensor_networks_tpu_torch import Index, TensorNetwork
+from tensor_networks_tpu_torch import Index, Tensor, TensorNetwork
 from tensor_networks_tpu_torch.kernels import evaluate as tev
 from tensor_networks_tpu_torch.kernels import zipper as tzp
 from tensor_networks_tpu_torch.ops import packed as tpk
@@ -80,10 +80,83 @@ def test_evaluate_kernel_matches_plain(dev, dtype, d, n, r, b):
     assert (got.double() - ref).abs().max() <= TOL[dtype] * ref.abs().max()
 
 
+def _group_points(pattern, b, d, n, g):
+    """Index patterns that stress the grouping tables."""
+    if pattern == "one-mode":  # one group, many tiles of one slice
+        idx = torch.randint(0, n, (b, d), generator=g, dtype=torch.int32)
+        idx[:, 1:-1] = n - 1
+        return idx
+    if pattern == "distinct":  # b <= n: every group holds one point
+        rows, steps = torch.arange(b)[:, None], torch.arange(d)[None, :]
+        return ((rows + steps) % n).to(torch.int32)
+    idx = torch.randint(0, n, (b, d), generator=g, dtype=torch.int32)
+    if pattern == "skip-mode":  # mode 1 holds no point
+        idx = torch.where(idx == 1, torch.zeros_like(idx), idx)
+    return idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "d,n,r,b,pattern",
+    [
+        (6, 32, 100, 8192, "one-mode"),
+        (7, 32, 100, 20, "distinct"),
+        (5, 4, 100, 1, "random"),
+        (5, 5, 37, tev.TILE_P + 1, "skip-mode"),
+        (2, 6, 40, 500, "random"),
+        (3, 6, 40, 500, "random"),
+        (4, 4, 512, 300, "random"),
+        (8, 2, 64, 777, "random"),
+        (6, 300, 48, 2000, "random"),
+    ],
+)
+def test_grouped_evaluate_cases(dev, dtype, d, n, r, b, pattern):
+    """The grouped kernel at the shapes and index patterns that stress
+    its tables and tiles; two calls give the same bits (no atomics)."""
+    g = torch.Generator().manual_seed(d * r + b)
+    first, mids, last = _train(g, max(d, 3), n, r, dtype, dev)
+    mids = mids * math.sqrt(n) if d > 2 else None  # point values O(1)
+    idx = _group_points(pattern, b, d, n, g).to(dev)
+    ref = tev.tt_evaluate_plain(*_f64([first, mids, last]), idx)
+    got = tev.tt_evaluate_cuda(first, mids, last, idx)
+    assert got.dtype == dtype and got.shape == (b,)
+    assert (got.double() - ref).abs().max() <= TOL[dtype] * ref.abs().max()
+    assert torch.equal(got, tev.tt_evaluate_cuda(first, mids, last, idx))
+    old = tev.tt_evaluate_per_point_cuda(first, mids, last, idx)
+    assert (old.double() - ref).abs().max() <= TOL[dtype] * ref.abs().max()
+    if d > 2:  # tables built once serve any train at the same points
+        tables = tev.build_group_tables(idx, n)
+        assert tables.perm.is_cuda and tables.tiles.is_cuda
+        # the tile-list kernel against its torch version, exactly
+        vals = torch.sort(idx[:, 1:-1].t().contiguous(), dim=1, stable=True)[0]
+        slots = tev.max_tiles_per_step(b, n)
+        assert torch.equal(
+            tables.tiles, tev.group_tiles_plain(vals, n, tev.TILE_P, slots)
+        )
+        assert torch.equal(got, tev.tt_evaluate_cuda(first, mids, last, idx, tables))
+    assert tev.tt_evaluate_cuda(first, mids, last, idx[:0]).shape == (0,)
+
+
+def test_constructors_default_to_the_card(dev):
+    inds = [Index(f"x{k}", 3) for k in range(4)]
+    net = TensorNetwork.rand_tt(inds, [2, 2, 2])
+    assert all(net.value(k).device == dev for k in range(4))
+    meta, arrays = net.to_separated_dict()
+    assert TensorNetwork.from_dict(net.to_dict()).value(0).device == dev
+    assert TensorNetwork.from_separated_dict(meta, arrays).value(0).device == dev
+    assert Tensor.from_dict(net.node_tensor(1).to_dict()).value.device == dev
+    pk = tpk.from_numpy(np.zeros((3, 2)), np.zeros((2, 2, 3, 2)), np.zeros((2, 3)))
+    assert all(x.device == dev for x in pk)
+    on_cpu = TensorNetwork.rand_tt(inds, [2, 2, 2], device="cpu")
+    assert on_cpu.value(0).device.type == "cpu"
+    with pytest.raises(RuntimeError):  # a generator on another device
+        TensorNetwork.rand_tt(inds, [2, 2, 2], generator=torch.Generator())
+
+
 def test_main_path_routes_through_the_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     inds = [Index(f"x{k}", 4) for k in range(6)]
-    a = TensorNetwork.rand_tt(inds, [5] * 5, device=dev, generator=g)
+    a = TensorNetwork.rand_tt(inds, [5] * 5, generator=g)
     pa = tpk.pack(a)
     before = (tzp.tt_inner_cuda.launches, tev.tt_evaluate_cuda.launches)
     cores = [x.clone().requires_grad_(True) for x in pa]
@@ -123,3 +196,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tev.tt_evaluate_cuda(f, m, l, idx.long())
     with pytest.raises(ValueError, match="shape"):
         tev.tt_evaluate_cuda(f, m, l, idx[:, :3].contiguous())
+    other = tev.build_group_tables(idx[:3].contiguous(), 3)
+    with pytest.raises(ValueError, match="grouping tables"):
+        tev.tt_evaluate_cuda(f, m, l, idx, other)

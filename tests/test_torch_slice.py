@@ -42,7 +42,9 @@ def nets():
     ja = jtn.TensorNetwork.rand_tt(inds, [R] * (D - 1))
     jb = jtn.TensorNetwork.rand_tt(inds, [R] * (D - 1))
     ta, tb = (
-        ttn.TensorNetwork.from_separated_dict(*x.to_separated_dict())
+        ttn.TensorNetwork.from_separated_dict(
+            *x.to_separated_dict(), device="cpu"
+        )
         for x in (ja, jb)
     )
     tinds = [ttn.Index(i.name, i.size) for i in inds]
@@ -62,7 +64,9 @@ def test_pack_inner_norm(nets):
     assert _rel(tpk.scale(tpa, -1.5).first, jpk.scale(jpa, -1.5).first) == 0
 
     # from_numpy takes the JAX package's packed arrays as they are
-    tfa = tpk.from_numpy(*(np.asarray(x) for x in jpa), dtype=torch.float64)
+    tfa = tpk.from_numpy(
+        *(np.asarray(x) for x in jpa), device="cpu", dtype=torch.float64
+    )
     assert _rel(tpk.inner(tfa, tpb), jpk.inner(jpa, jpb)) <= 1e-12
     # unpack and pad_rank keep the represented tensor
     assert _rel(tpk.unpack(tpa).contract().value, ta.contract().value) == 0
