@@ -9,18 +9,23 @@ three phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
-   float64 plain result as the reference; the grouped evaluation kernel
+   float64 plain result as the reference: the inner product on both of
+   its routes (the fused steps up to rank 128, the chain above) and
+   twice each for bit-identical outputs; the grouped evaluation kernel
    also at the index patterns that stress its grouping tables, and twice
    for bit-identical outputs;
 2. the main path at full size (d=50 cores, mode n=32, rank r=100, f32):
    build two trains, pack, inner product and norm, fixed-rank rounding
    of ``a + a``, evaluation at 8192 points -- with the kernels' launch
-   counters reset just before and read just after;
+   counters reset just before and read just after (the three inner
+   products must take the fused route);
 3. timings at the main path's shapes (CUDA events): each kernel against
    its plain version and its bound (the larger of bytes over 3.35 TB/s
    and FP32 operations over 67 TFLOP/s, the H100's published peaks),
-   and the grouped evaluation against the per-point kernel it replaced
-   at 8192, 1000 and 300 points.
+   the grouped evaluation against the per-point kernel it replaced
+   at 8192, 1000 and 300 points; the inner product's fused route against
+   the chain (turns F C C F), the device time of each by kernel
+   (torch.profiler), and the chain at ranks (256, 256) and (512, 300).
 
 Then a JSON line with per-kernel results, the card's name and power
 limit from ``nvidia-smi``, and, last, the result line
@@ -33,8 +38,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,26 +90,46 @@ def _time_ms(fn, reps=20, warmup=3):
 
 
 def phase_kernels_vs_plain(zp, ev, dev):
-    """H1 and H2 against their plain versions, f32 and f64."""
+    """H1 (both routes) and H2 against their plain versions, f32 and f64."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = {"inner": 0.0, "evaluate": 0.0}
     checks = 0
     tol = {torch.float32: 1e-4, torch.float64: 1e-10}
-    # (d, n, r_a, r_b): the main path, odd sizes, mixed ranks, d = 3, the
+    edge = zp.FUSED_MAX_RANK
+    # (d, n, r_a, r_b): the main path, odd sizes, mixed ranks, d = 2 and 3,
+    # n = 1 and 300, the two sides of the fused route's rank limit, the
     # rank-256 and rank-512 envelope
     for d, n, ra, rb in [(D, N, R, R), (7, 5, 37, 37), (7, 5, 64, 96),
-                         (3, 6, 9, 4), (10, 8, 256, 256), (4, 4, 512, 300)]:
-        a64 = _train(g, d, n, ra, 1 / math.sqrt(n * ra), dtype=torch.float64)
-        b64 = _train(g, d, n, rb, 1 / math.sqrt(n * rb), dtype=torch.float64)
+                         (3, 6, 9, 4), (2, 6, 20, 12), (6, 1, R, R),
+                         (4, 300, 48, 40), (5, N, R, 64), (5, 8, edge, edge),
+                         (5, 8, edge + 1, edge), (10, 8, 256, 256),
+                         (4, 4, 512, 300)]:
+        a64 = _train(g, max(d, 3), n, ra, 1 / math.sqrt(n * ra), dtype=torch.float64)
+        b64 = _train(g, max(d, 3), n, rb, 1 / math.sqrt(n * rb), dtype=torch.float64)
+        if d == 2:
+            a64, b64 = (a64[0], None, a64[2]), (b64[0], None, b64[2])
         na = math.sqrt(zp.tt_inner_plain(*a64, *a64).item())
         nb = math.sqrt(zp.tt_inner_plain(*b64, *b64).item())
+        fused = zp.takes_fused_route(ra, rb)
         # <a, b> of independent trains is near 0 at large d; <a, a> is not
         for x64, y64, scale in ((a64, b64, na * nb), (a64, a64, na * na)):
             ref = zp.tt_inner_plain(*x64, *y64).item()
             for dt in (torch.float32, torch.float64):
-                args = [x.to(dt).contiguous() for x in x64 + y64]
-                for name, val in (("kernel", zp.tt_inner_cuda(*args)),
-                                  ("plain", zp.tt_inner_plain(*args))):
+                args = [None if x is None else x.to(dt).contiguous()
+                        for x in x64 + y64]
+                before = zp.tt_inner_cuda.fused
+                routed = zp.tt_inner_cuda(*args)
+                if zp.tt_inner_cuda.fused != before + fused:
+                    raise AssertionError(f"inner ra={ra} rb={rb}: wrong route")
+                chain = zp.tt_inner_chain_cuda(*args)
+                for name, val, again in (
+                        ("routed", routed, zp.tt_inner_cuda),
+                        ("chain", chain, zp.tt_inner_chain_cuda),
+                        ("plain", zp.tt_inner_plain(*args), None)):
+                    if again is not None and not torch.equal(val, again(*args)):
+                        raise AssertionError(
+                            f"inner {name} d={d} n={n} ra={ra} rb={rb} {dt}: "
+                            "two calls differ")
                     err = abs(val.item() - ref) / scale
                     if not err <= tol[dt]:
                         raise AssertionError(
@@ -240,6 +267,8 @@ def phase_main_path(zp, ev, dev):
 
     torch.cuda.synchronize()
     zp.tt_inner_cuda.launches = 0
+    zp.tt_inner_cuda.fused = 0
+    zp.tt_inner_chain_cuda.launches = 0
     ev.tt_evaluate_cuda.launches = 0
     ev.group_tiles_cuda.launches = 0
     t0 = time.perf_counter()
@@ -261,10 +290,17 @@ def phase_main_path(zp, ev, dev):
                 "evaluate": ev.tt_evaluate_cuda.launches,
                 "tiles": ev.group_tiles_cuda.launches}
 
+    fused = zp.tt_inner_cuda.fused
+    launches_chain = zp.tt_inner_chain_cuda.launches
     if launches != {"zipper": 3, "evaluate": 3, "tiles": 3}:
         raise AssertionError(
             "the main path makes 3 inner products and 3 evaluations, each "
             f"with one tile list: {launches}")
+    if fused != 3 or launches_chain != 0:
+        raise AssertionError(f"{3 - fused} of the 3 inner products missed the fused route")
+    device_launches = zp.tt_inner_cuda.last_device_launches
+    if device_launches > 2 + 2 * (D - 2):
+        raise AssertionError(f"an inner product made {device_launches} launches")
     # f64 plain references on the same cores
     fa, ma, la = _f64(*stack(pa))
     fb, mb, lb = _f64(*stack(pb))
@@ -307,13 +343,15 @@ def phase_main_path(zp, ev, dev):
             raise AssertionError("evaluation output is not a finite (B,) vector")
     print(
         f"phase 2 main path d={D} n={N} r={R} B={B} f32: ok, launches {launches}, "
+        f"inner products on the fused route {fused} of 3, {device_launches} "
+        "device launches each, "
         f"<a,b>={ip.item():.6e} |a|={nrm.item():.6e} ranks {ranks[0]},"
         f"{ranks[1]}x{len(ranks) - 2},{ranks[-1]} eval rel err "
         + ", ".join(f"{k} {v[0]:.2e}" for k, v in errs.items())
         + f"; wall s: pack+inner+norm+fast {t1 - t0:.4f}, round(a+a) {t2 - t1:.4f}, "
         f"3 evaluates {t3 - t2:.4f}"
     )
-    return launches, pa, idx
+    return dict(launches, chain=launches_chain), pa, idx
 
 
 def stack(p):
@@ -415,6 +453,96 @@ def phase_timings(zp, ev, pa, pb_like, idx, launches):
     return res
 
 
+def _device_us_by_kernel(fn, calls=5):
+    """Each kernel's share of one call of ``fn`` on the device, from a
+    torch.profiler trace: {kernel: (us per call, launches per call)} and
+    the call's device span in us.  A kernel's share is the time from the
+    later of its start and the previous kernel's end to its own end, so
+    a programmatic dependent launch, which starts early and waits, is
+    charged only for what it adds to the chain, and the gaps where no
+    kernel runs are left out (span minus the sum of shares is idle)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in trace["traceEvents"]
+                     if e.get("cat") == "kernel" and e.get("ph") == "X")
+    keys = ("zip_step", "zip_reduce", "zip_last", "gemm_tn", "reduce_splits",
+            "zipper_epilogue")
+    out, prev_end = {}, None
+    for start, end, name in kernels:
+        key = next((k for k in keys if k in name), name[:40])
+        share = end - max(start, prev_end) if prev_end is not None else end - start
+        us, count = out.get(key, (0.0, 0.0))
+        out[key] = (us + max(share, 0.0) / calls, count + 1 / calls)
+        prev_end = end if prev_end is None else max(prev_end, end)
+    span = (kernels[-1][1] - kernels[0][0]) / calls if kernels else 0.0
+    return out, span
+
+
+def phase_zipper_routes(zp, a, b, res):
+    """H1 at the main shape: the fused route against the chain, turns
+    F C C F; the device time of each by kernel (torch.profiler); the host
+    time to enqueue one call; then the chain at ranks above the fused
+    route's limit (d=50, n=32), where the router sends it."""
+    fused = lambda: zp.tt_inner_cuda(*a, *b)  # noqa: E731
+    chain = lambda: zp.tt_inner_chain_cuda(*a, *b)  # noqa: E731
+    runs = [_time_ms(fused), _time_ms(chain), _time_ms(chain), _time_ms(fused)]
+    fused_launches = zp.tt_inner_cuda.last_device_launches
+    chain_launches = zp.tt_inner_chain_cuda.last_device_launches
+    bound = res["inner"]["bound_ms"]
+    ms_f, ms_c = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    print(f"  inner fused vs chain (F C C F): fused {ms_f:.4f} ms, "
+          f"{fused_launches} device launches, {100 * bound / ms_f:.1f}% of the "
+          f"bound; chain {ms_c:.4f} ms, {chain_launches} device launches, "
+          f"{100 * bound / ms_c:.1f}%; runs " + ",".join(f"{x:.4f}" for x in runs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fused()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    for name, fn in (("fused", fused), ("chain", chain)):
+        parts, span = _device_us_by_kernel(fn)
+        busy = sum(us for us, _ in parts.values())
+        print(f"  inner {name}, each kernel's share of a call (torch.profiler "
+              "trace, to its end from the previous kernel's end): "
+              + ", ".join(f"{k} {us:.1f} us over {c:g} launches"
+                          for k, (us, c) in parts.items())
+              + f"; busy {busy / 1e3:.4f} ms of a {span / 1e3:.4f} ms span "
+              "(5 calls, the gaps between calls included)")
+    print(f"  inner fused: the host enqueues one call in {host_ms:.4f} ms")
+    g = torch.Generator(device=a[0].device).manual_seed(SEED + 3)
+    big = {}
+    for ra, rb in ((256, 256), (512, 300)):
+        x = list(_train(g, D, N, ra, 1 / math.sqrt(N * ra)))
+        y = list(_train(g, D, N, rb, 1 / math.sqrt(N * rb)))
+        if zp.takes_fused_route(ra, rb):
+            raise AssertionError(f"ranks ({ra}, {rb}) must take the chain")
+        k = lambda: zp.tt_inner_cuda(*x, *y)  # noqa: E731
+        p = lambda: zp.tt_inner_plain(*x, *y)  # noqa: E731
+        t = [_time_ms(p, 5, 1), _time_ms(k, 5, 1), _time_ms(k, 5, 1), _time_ms(p, 5, 1)]
+        bnd = _inner_bound(x, y)[0]
+        big[(ra, rb)] = (t[1] + t[2]) / 2
+        print(f"  inner chain at (r_a, r_b) = ({ra}, {rb}), d={D} n={N}: "
+              f"{big[(ra, rb)]:.4f} ms ({zp.tt_inner_cuda.last_device_launches} "
+              f"device launches), plain {(t[0] + t[3]) / 2:.4f} ms, bound "
+              f"{bnd:.4f} ms ({100 * bnd / big[(ra, rb)]:.1f}%)")
+        del x, y
+    err = (chain().double() - zp.tt_inner_plain(*a, *b).double()).abs().item()
+    return {"ms": ms_c, "plain_ms": res["inner"]["plain_ms"], "max_abs_err": err,
+            "bound_ms": bound, "bound_by": res["inner"]["bound_by"]}
+
+
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
@@ -451,6 +579,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     pb = tnt.packed.PackedTT(*_train(g, D, N, R, 1 / math.sqrt(N * R)))
     times = phase_timings(zp, ev, pa, pb, idx, launches)
+    times["chain"] = phase_zipper_routes(zp, list(stack(pa)), list(stack(pb)),
+                                         times)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
@@ -458,6 +588,12 @@ def main() -> int:
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 (tt_inner_pallas), "
                      "tensor_networks_tpu/kernels/pallas_ops.py:229 (tt_inner_pallas_fused)",
          "launches": launches["zipper"], **_kernel_numbers(times["inner"])},
+        {"name": "tt_inner_chain_cuda", "route": "cuda",
+         "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
+         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 (tt_inner_pallas), "
+                     "tensor_networks_tpu/kernels/pallas_ops.py:229 (tt_inner_pallas_fused), "
+                     "above rank 128",
+         "launches": launches["chain"], **_kernel_numbers(times["chain"])},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 (tt_evaluate_pallas), "

@@ -109,6 +109,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         # stream
         fn.argtypes = [_PTR] * 10 + [_INT] * 7 + [_PTR]
         fn.restype = _INT
+        fn = getattr(lib, f"tnt_zipper_fused_{suffix}")
+        # fa ma la fb mb lb, w part out, n0 n nl ra rb d_mid nbands tmax,
+        # stream
+        fn.argtypes = [_PTR] * 9 + [_INT] * 8 + [_PTR]
+        fn.restype = _INT
         fn = getattr(lib, f"tnt_evaluate_{suffix}")
         # first mids last idx out, B d n r, stream
         fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]

@@ -57,43 +57,6 @@ constexpr int TX = 16;     // thread columns of a block
 constexpr int BK = 16;     // depth of a K-slab
 constexpr int NSTAGE = 4;  // K-slabs in flight in shared memory
 
-// 16 bytes of T: the unit of every vector load and store
-template <typename T>
-struct alignas(16) Pack {
-    T v[16 / sizeof(T)];
-};
-
-// Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory;
-// with ok == false nothing is read and the destination is zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool ok) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    const int src_bytes = ok ? BYTES : 0;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
-                 "l"(gmem), "n"(BYTES), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Programmatic dependent launch: a step kernel lets the next step's
-// blocks start at once, and those stage their slice (which no step
-// writes) before they wait for this step's carries to be complete.
-__device__ __forceinline__ void launch_dependents() {
-    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_for_previous_grid() {
-    asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 template <typename T, int TM, int TN, int TY>
 constexpr size_t step_smem_bytes() {
     return (size_t)NSTAGE * (TY * TM * (BK + 16 / sizeof(T)) + BK * TX * TN) *
@@ -122,7 +85,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
     constexpr int LDA = BK + PK;  // row stride of As, a multiple of a Pack
     constexpr int NJ = TN / PK;   // column packs per thread
     static_assert(TN % PK == 0 && BK % PK == 0, "tile must hold whole packs");
-    using P = Pack<T>;
+    using P = tnt::Pack<T>;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* As = reinterpret_cast<T*>(smem_raw);  // [NSTAGE][TILE_P][LDA]
@@ -130,7 +93,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
     __shared__ int src_row[TILE_P];
     __shared__ int dst_row[TILE_P];
 
-    launch_dependents();
+    tnt::launch_dependents();
     const int4 tile = tiles[blockIdx.x];
     const int start = tile.z;
     if (tile.w <= 0 || start < 0 || start >= B) return;  // whole block
@@ -156,7 +119,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const bool ok = k0 + kk < r && col0 + cp < r;
                 const T* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + cp
                                 : slice;
-                cp_async<16>(stage + kk * TILE_N + cp, g, ok);
+                tnt::cp_async<16>(stage + kk * TILE_N + cp, g, ok);
             }
         } else {
             for (int e = tid; e < BK * TILE_N; e += THREADS) {
@@ -165,7 +128,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const bool ok = k0 + kk < r && col0 + c < r;
                 const T* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + c
                                 : slice;
-                cp_async<sizeof(T)>(stage + kk * TILE_N + c, g, ok);
+                tnt::cp_async<sizeof(T)>(stage + kk * TILE_N + c, g, ok);
             }
         }
     };
@@ -180,7 +143,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const int row = src_row[p];
                 const bool ok = row >= 0 && k0 + kp < r;
                 const T* g = ok ? src + (size_t)row * r + k0 + kp : src;
-                cp_async<16>(stage + p * LDA + kp, g, ok);
+                tnt::cp_async<16>(stage + p * LDA + kp, g, ok);
             }
         } else {
             for (int e = tid; e < TILE_P * BK; e += THREADS) {
@@ -189,7 +152,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const int row = src_row[p];
                 const bool ok = row >= 0 && k0 + kk < r;
                 const T* g = ok ? src + (size_t)row * r + k0 + kk : src;
-                cp_async<sizeof(T)>(stage + p * LDA + kk, g, ok);
+                tnt::cp_async<sizeof(T)>(stage + p * LDA + kk, g, ok);
             }
         }
     };
@@ -207,11 +170,11 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
         src_row[p] = row;
     }
     __syncthreads();
-    wait_for_previous_grid();
+    tnt::wait_for_previous_grid();
     // group s holds V slab s (group 0 also every S slab staged above)
     for (int s = 0; s < NSTAGE - 1; ++s) {
         if (s < nslab) load_v(s);
-        cp_async_commit();
+        tnt::cp_async_commit();
     }
 
     T acc[TM][TN];
@@ -220,13 +183,13 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
     for (int s = 0; s < nslab; ++s) {
-        cp_async_wait<NSTAGE - 2>();  // this thread's part of slab s landed
+        tnt::cp_async_wait<NSTAGE - 2>();  // this thread's part of slab s landed
         __syncthreads();  // everyone's did, and slab s-1 is consumed
         if (s + NSTAGE - 1 < nslab) {
             load_s(s + NSTAGE - 1);
             load_v(s + NSTAGE - 1);
         }
-        cp_async_commit();
+        tnt::cp_async_commit();
 
         const T* Ast = As + (s % NSTAGE) * TILE_P * LDA;
         const T* Bst = Bs + (s % NSTAGE) * BK * TILE_N;
@@ -290,7 +253,7 @@ grouped_finish(const T* __restrict__ src, const int* __restrict__ idx,
                T* __restrict__ out, int B, int d, int n, int r) {
     const int b = blockIdx.x * FINISH_WARPS + threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    wait_for_previous_grid();
+    tnt::wait_for_previous_grid();
     if (b >= B) return;
     const int* ib = idx + (size_t)b * d;
     const int row = from_first ? tnt::clamp_index(ib[0], n) : b;
@@ -303,33 +266,6 @@ grouped_finish(const T* __restrict__ src, const int* __restrict__ idx,
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-inline bool aligned16(const void* p) {
-    return reinterpret_cast<size_t>(p) % 16 == 0;
-}
-
-// Launch `kernel` so that it may start while the kernel before it on the
-// stream still runs (it waits inside, see wait_for_previous_grid), or as
-// an ordinary launch when `overlap` is false.
-template <typename... Params, typename... Args>
-int launch_after(void (*kernel)(Params...), dim3 grid, int threads,
-                 size_t smem, cudaStream_t stream, bool overlap,
-                 Args... args) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = overlap ? 1 : 0;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, Params(args)...);
-    if (err != cudaSuccess) return (int)err;
-    TNT_CHECK_LAUNCH();
-    return 0;
-}
 
 // The tile a block owns, per type: 32 points by 64 columns, with
 // (8 x 4) accumulators per thread in float (64 threads) and (4 x 4) in
@@ -367,10 +303,11 @@ int evaluate_grouped(const T* first, const T* mids, const T* last,
                   TY = StepTile<T>::TY;
     constexpr size_t smem = step_smem_bytes<T, TM, TN, TY>();
     const int d_mid = d - 2;
-    const int vec = r % PK == 0 && aligned16(first) && aligned16(mids) &&
-                    aligned16(carry0) && aligned16(carry1);
+    const int vec = r % PK == 0 && tnt::aligned16(first) &&
+                    tnt::aligned16(mids) && tnt::aligned16(carry0) &&
+                    tnt::aligned16(carry1);
     if (d_mid > 0) {
-        if (!aligned16(tiles)) return (int)cudaErrorInvalidValue;
+        if (!tnt::aligned16(tiles)) return (int)cudaErrorInvalidValue;
         if (smem > 48 * 1024) {  // above 48 KB shared memory is an opt-in
             cudaError_t err = cudaFuncSetAttribute(
                 grouped_step<T, TM, TN, TY>,
@@ -387,7 +324,7 @@ int evaluate_grouped(const T* first, const T* mids, const T* last,
         T* dst = bufs[k & 1];
         // the first step is an ordinary launch: the kernel before it on
         // the stream may be the one that writes the grouping tables
-        const int rc = launch_after(
+        const int rc = tnt::launch_after(
             grouped_step<T, TM, TN, TY>, grid, TX * TY, smem, stream, k > 0,
             src, idx, from_first, mids + k * core_sz, perm + (size_t)k * B,
             reinterpret_cast<const int4*>(tiles + (size_t)k * max_tiles * 4),
@@ -396,7 +333,7 @@ int evaluate_grouped(const T* first, const T* mids, const T* last,
         src = dst;
         from_first = 0;
     }
-    return launch_after(grouped_finish<T>, dim3(cdiv(B, FINISH_WARPS)),
+    return tnt::launch_after(grouped_finish<T>, dim3(cdiv(B, FINISH_WARPS)),
                         FINISH_WARPS * 32, 0, stream, d_mid > 0, src, idx,
                         from_first, last, out, B, d, n, r);
 }
@@ -577,7 +514,7 @@ int tnt_evaluate_grouped_f64(const void* first, const void* mids,
 int tnt_group_tiles(const void* vals, void* tiles, int B, int d_mid, int n,
                     int max_tiles, int tile_p, void* stream) {
     if (B < 1 || d_mid < 1 || n < 1 || tile_p < 1 || max_tiles < 1 ||
-        !aligned16(tiles))
+        !tnt::aligned16(tiles))
         return (int)cudaErrorInvalidValue;
     group_tiles<<<d_mid, TILES_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)vals, (int4*)tiles, B, n, max_tiles, tile_p);

@@ -1,27 +1,38 @@
-"""H1: the TT inner-product zipper -- CUDA kernel, plain version, router.
+"""H1: the TT inner-product zipper -- CUDA kernels, plain version, router.
 
 Replaces the JAX package's Pallas zippers
 ``tensor_networks_tpu/kernels/pallas_ops.py::tt_inner_pallas`` (K1, :502)
 and ``::tt_inner_pallas_fused`` (K2, :229); the kernel source is
-``csrc/zipper.cu``.  One C call runs the whole inner product (prologue
-GEMM, two GEMM launches per middle core pair with stream order as the
-step boundary, one epilogue), so one wrapper call is one inner product,
-as K2 was one dispatch.
+``csrc/zipper.cu``.  One C call runs the whole inner product, so one
+wrapper call is one inner product, as K2 was one dispatch.  Two routes,
+chosen by rank before any launch (:func:`takes_fused_route`):
+
+* the fused route, max(r_a, r_b) <= :data:`FUSED_MAX_RANK`: per middle
+  core pair one ``zip_step`` (a block per mode and band of rows computes
+  A_i^T W B_i with both products in shared memory) and one ``zip_reduce``
+  (the sum over modes in a fixed order), chained by programmatic
+  dependent launch; 1 + 2 (d-2) + 1 launches.  :func:`band_plan` cuts the
+  rows into bands;
+* the chain (:func:`tt_inner_chain_cuda`), above that rank: a prologue
+  GEMM, two GEMM launches per core pair (the second split along K and
+  reduced), one epilogue; ~3 (d-2) + 2 launches.
 
 What bounds it on the H100: at d=50, n=32, r=100 one inner product is
 ~6.1 GFLOP over ~123 MB of cores, so it is FP32-FMA-bound: ~90 us at
-67 TFLOP/s against ~37 us at 3.35 TB/s.  This first version uses plain
-FMA tiles, no tensor cores; making it fast is later work.
+67 TFLOP/s against ~37 us at 3.35 TB/s.  Both routes use plain FMA, no
+tensor cores.
 
-Routing: :func:`tt_inner` sends CUDA tensors to the kernel (which raises
-on what it cannot take) and CPU tensors to :func:`tt_inner_plain`.  There
-is no fallback from the kernel to the plain version.
+Routing: :func:`tt_inner` sends CUDA tensors to the kernels (which raise
+on what they cannot take) and CPU tensors to :func:`tt_inner_plain`.
+There is no fallback from a kernel to the plain version, nor from the
+fused route to the chain.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,8 +40,18 @@ from tensor_networks_tpu_torch.kernels import _build
 
 PRECISIONS = ("highest", "bf16x3", "default")
 MAX_RANK = 512
-_SPLIT_TILE = 64  # the kernel's GEMM output tile edge
-_SPLIT_BK = 16  # the kernel's GEMM K step
+#: ranks up to this take the fused route; its shared memory (A slice, U,
+#: two rings) fits one block at this rank in float64 too
+FUSED_MAX_RANK = 128
+_SPLIT_TILE = 64  # the chain's GEMM output tile edge
+_SPLIT_BK = 16  # the chain's GEMM K step
+# the fused step's geometry, as csrc/zipper.cu has it
+_STEP_TM = 4  # band rows per thread; bands start at multiples of it
+_STEP_NJ = 1  # 16-byte column packs per thread
+_STEP_MAX_THREADS = 256
+_STEP_NSTAGE = 4  # K-slabs in flight per ring
+_STEP_BK = 16  # depth of a K-slab
+_SMEM_BYTES = 232448  # shared memory one block may take on the H100
 
 
 def tt_inner_plain(fa, ma, la, fb, mb, lb) -> torch.Tensor:
@@ -59,34 +80,94 @@ def _check_precision(precision: str) -> None:
         )
 
 
-def _splits(device: torch.device, ra: int, rb: int, k: int) -> int:
-    """K-splits for the step's second GEMM: enough partial tiles for two
-    blocks per SM, at most one split per K step."""
+def _splits(sms: int, ra: int, rb: int, k: int) -> int:
+    """K-splits for the chain step's second GEMM: enough partial tiles for
+    two blocks per SM, at most one split per K step."""
     tiles = math.ceil(ra / _SPLIT_TILE) * math.ceil(rb / _SPLIT_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(math.ceil(2 * sms / tiles), math.ceil(k / _SPLIT_BK)))
 
 
-def tt_inner_cuda(
-    fa: torch.Tensor,
-    ma: Optional[torch.Tensor],
-    la: torch.Tensor,
-    fb: torch.Tensor,
-    mb: Optional[torch.Tensor],
-    lb: torch.Tensor,
-) -> torch.Tensor:
-    """<a, b> through the H1 kernel; returns a 0-d tensor.
+def takes_fused_route(ra: int, rb: int) -> bool:
+    """The routing rule: the fused steps up to :data:`FUSED_MAX_RANK`,
+    the chain above it.  Decided by shape alone, before any launch."""
+    return max(ra, rb) <= FUSED_MAX_RANK
 
-    Takes contiguous float32 or float64 CUDA tensors on one device:
-    fa (n0, r_a), ma (d-2, r_a, n, r_a) or None, la (r_a, nl), and the
-    same for b with its own rank r_b <= 512.  Raises on anything else.
-    Counts one launch per call in ``tt_inner_cuda.launches``.
+
+def band_rows(ra: int, nbands: int) -> list:
+    """The (start, stop) rows of each band: whole units of ``_STEP_TM``
+    rows, spread as evenly as possible; the last unit may be partial.
+    ``zip_step`` computes the same from its block index."""
+    units = math.ceil(ra / _STEP_TM)
+    base, extra = divmod(units, nbands)
+    bands = []
+    for b in range(nbands):
+        u0 = b * base + min(b, extra)
+        u1 = u0 + base + (b < extra)
+        bands.append((u0 * _STEP_TM, min(ra, u1 * _STEP_TM)))
+    return bands
+
+
+class BandPlan(NamedTuple):
+    nbands: int  # bands of a2 rows; the step's grid is (n, nbands)
+    tmax: int  # rows of the largest band, rounded up to _STEP_TM
+    threads: int  # threads of a step block
+    smem: int  # dynamic shared memory of a step block, bytes
+
+
+def band_plan(ra: int, rb: int, n: int, dtype: torch.dtype, sms: int) -> BandPlan:
+    """How ``zip_step`` cuts the a2 rows into bands for n modes on
+    ``sms`` SMs.
+
+    A block's threads cover its band (``_STEP_TM`` rows each) by r_b
+    columns (one 16-byte pack each), at most ``_STEP_MAX_THREADS``; that
+    sets the fewest bands.  Among the band counts from there to one unit
+    per band, take the fewest whose n * nbands blocks fill their last
+    wave of ``sms`` within 5% of the best count's fill (each band reads
+    all of W and B_i).  Whole units per band, so no band is empty.  At
+    the main shape that is 4 bands, one block per SM; 8 bands (two
+    blocks per SM) measured slower on the H100 (``PERF.md``).
     """
+    item = torch.empty((), dtype=dtype).element_size()
+    cols = _STEP_NJ * (16 // item)
+    txc = math.ceil(rb / cols)
+    units = math.ceil(ra / _STEP_TM)
+    cap_units = _STEP_MAX_THREADS // txc
+    plans = []
+    for nbands in range(math.ceil(units / cap_units), units + 1):
+        tmax = math.ceil(units / nbands) * _STEP_TM
+        smem = ((ra + rb) * tmax + 2 * _STEP_NSTAGE * _STEP_BK * txc * cols) * item
+        if smem <= _SMEM_BYTES:
+            blocks = n * nbands
+            fill = blocks / (math.ceil(blocks / sms) * sms)
+            threads = 32 * math.ceil(txc * (tmax // _STEP_TM) / 32)
+            plans.append((fill, BandPlan(nbands, tmax, threads, smem)))
+    if not plans:
+        raise ValueError(f"no band plan fits ranks ({ra}, {rb}) in shared memory")
+    best = max(fill for fill, _ in plans)
+    return next(plan for fill, plan in plans if fill >= 0.95 * best)
+
+
+def device_launches(d_mid: int, fused: bool, splits: int = 1) -> int:
+    """Kernel launches of one inner product: the fused route makes
+    1 + 2 (d-2) + 1; the chain 1 + (2 or 3) (d-2) + 1, with a reduce of
+    the split-K partials in each step when its second GEMM is split."""
+    if fused:
+        return 2 + 2 * d_mid
+    return 2 + d_mid * (3 if splits > 1 else 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_cores(fa, ma, la, fb, mb, lb, who: str):
+    """Validate the two trains; returns (n0, n, nl, ra, rb, d_mid)."""
     tensors = [fa, la, fb, lb] + [m for m in (ma, mb) if m is not None]
     dev = fa.device
     dtype = fa.dtype
     if dev.type != "cuda":
-        raise ValueError(f"tt_inner_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
     for x in tensors:
         if x.device != dev or x.dtype != dtype:
             raise ValueError("all cores must share one CUDA device and dtype")
@@ -116,9 +197,18 @@ def tt_inner_cuda(
         )
     if max(ra, rb) > MAX_RANK:
         raise ValueError(f"ranks above {MAX_RANK} are not supported")
+    return n0, n, nl, ra, rb, d_mid
 
+
+def _ptr(x: Optional[torch.Tensor]):
+    return x.data_ptr() if x is not None else None
+
+
+def _chain(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
+    """The chain: returns (the 0-d result, its device launches)."""
+    dev, dtype = fa.device, fa.dtype
     lib = _build.cuda_library()
-    splits = _splits(dev, ra, rb, rb * n) if d_mid else 1
+    splits = _splits(_sm_count(dev.index), ra, rb, rb * n) if d_mid else 1
     with torch.cuda.device(dev):
         w = torch.empty(ra * rb, device=dev, dtype=dtype)
         t = torch.empty(max(rb * n * ra, 1), device=dev, dtype=dtype)
@@ -126,31 +216,88 @@ def tt_inner_cuda(
         out = torch.empty((), device=dev, dtype=dtype)
         fn = lib.tnt_zipper_f32 if dtype == torch.float32 else lib.tnt_zipper_f64
         rc = fn(
-            fa.data_ptr(),
-            ma.data_ptr() if ma is not None else None,
-            la.data_ptr(),
-            fb.data_ptr(),
-            mb.data_ptr() if mb is not None else None,
-            lb.data_ptr(),
-            w.data_ptr(),
-            t.data_ptr(),
-            part.data_ptr(),
-            out.data_ptr(),
-            n0,
-            n,
-            nl,
-            ra,
-            rb,
-            d_mid,
-            splits,
+            _ptr(fa), _ptr(ma), _ptr(la), _ptr(fb), _ptr(mb), _ptr(lb),
+            w.data_ptr(), t.data_ptr(), part.data_ptr(), out.data_ptr(),
+            n0, n, nl, ra, rb, d_mid, splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "tt_inner_chain_cuda")
+    tt_inner_chain_cuda.launches += 1
+    # the kernel's gemm() rounds the split count to whole K steps
+    k = rb * n
+    kchunk = math.ceil(math.ceil(k / splits) / _SPLIT_BK) * _SPLIT_BK
+    return out, device_launches(d_mid, False, math.ceil(k / kchunk) if d_mid else 1)
+
+
+def _fused(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
+    """The fused route: returns (the 0-d result, its device launches)."""
+    dev, dtype = fa.device, fa.dtype
+    lib = _build.cuda_library()
+    plan = band_plan(ra, rb, n, dtype, _sm_count(dev.index)) if d_mid else None
+    with torch.cuda.device(dev):
+        w = torch.empty(ra * rb, device=dev, dtype=dtype)
+        part = torch.empty(n * ra * rb if d_mid else 1, device=dev, dtype=dtype)
+        out = torch.empty((), device=dev, dtype=dtype)
+        fn = (lib.tnt_zipper_fused_f32 if dtype == torch.float32
+              else lib.tnt_zipper_fused_f64)
+        rc = fn(
+            _ptr(fa), _ptr(ma), _ptr(la), _ptr(fb), _ptr(mb), _ptr(lb),
+            w.data_ptr(), part.data_ptr(), out.data_ptr(),
+            n0, n, nl, ra, rb, d_mid,
+            plan.nbands if plan else 0, plan.tmax if plan else 0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "tt_inner_cuda")
+    tt_inner_cuda.fused += 1
+    return out, device_launches(d_mid, True)
+
+
+def tt_inner_cuda(
+    fa: torch.Tensor,
+    ma: Optional[torch.Tensor],
+    la: torch.Tensor,
+    fb: torch.Tensor,
+    mb: Optional[torch.Tensor],
+    lb: torch.Tensor,
+) -> torch.Tensor:
+    """<a, b> through the H1 kernels; returns a 0-d tensor.
+
+    Takes contiguous float32 or float64 CUDA tensors on one device:
+    fa (n0, r_a), ma (d-2, r_a, n, r_a) or None, la (r_a, nl), and the
+    same for b with its own rank r_b <= 512.  Raises on anything else.
+    Ranks up to :data:`FUSED_MAX_RANK` take the fused route, larger ones
+    the chain.  Counts one call in ``tt_inner_cuda.launches``, the fused
+    ones also in ``tt_inner_cuda.fused`` (the chain's in
+    ``tt_inner_chain_cuda.launches``), and keeps the device launches of
+    the last call in ``tt_inner_cuda.last_device_launches``.
+    """
+    dims = _check_cores(fa, ma, la, fb, mb, lb, "tt_inner_cuda")
+    route = _fused if takes_fused_route(dims[3], dims[4]) else _chain
+    out, launches = route(fa, ma, la, fb, mb, lb, *dims)
     tt_inner_cuda.launches += 1
+    tt_inner_cuda.last_device_launches = launches
     return out
 
 
 tt_inner_cuda.launches = 0
+tt_inner_cuda.fused = 0
+tt_inner_cuda.last_device_launches = 0
+
+
+def tt_inner_chain_cuda(fa, ma, la, fb, mb, lb) -> torch.Tensor:
+    """<a, b> through the chain at any rank up to 512: the route that
+    :func:`tt_inner_cuda` takes above :data:`FUSED_MAX_RANK`, callable
+    at every rank as the fused route's yardstick.  Same contract as
+    :func:`tt_inner_cuda`; counts its calls in ``.launches`` and keeps the
+    device launches of the last one in ``.last_device_launches``."""
+    dims = _check_cores(fa, ma, la, fb, mb, lb, "tt_inner_chain_cuda")
+    out, launches = _chain(fa, ma, la, fb, mb, lb, *dims)
+    tt_inner_chain_cuda.last_device_launches = launches
+    return out
+
+
+tt_inner_chain_cuda.launches = 0
+tt_inner_chain_cuda.last_device_launches = 0
 
 
 def tt_inner(fa, ma, la, fb, mb, lb, precision: str = "highest"):

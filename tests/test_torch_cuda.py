@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from tensor_networks_tpu_torch import Index, Tensor, TensorNetwork
+from tensor_networks_tpu_torch import Index, Tensor, TensorNetwork, tt_inner_fast
 from tensor_networks_tpu_torch.kernels import evaluate as tev
 from tensor_networks_tpu_torch.kernels import zipper as tzp
 from tensor_networks_tpu_torch.ops import packed as tpk
@@ -45,12 +45,22 @@ def _f64(cores):
     return [None if x is None else x.double() for x in cores]
 
 
+# (d, n, r_a, r_b): d = 2 and 3, n = 1 and 300, mixed ranks, the odd
+# rank (scalar copies), and the two sides of the fused route's rank limit
+ZIP_CASES = [
+    (2, 4, 3, 5), (3, 1, 1, 1), (5, 3, 65, 7), (4, 2, 130, 129),
+    (3, 6, 9, 4), (4, 1, 100, 100), (4, 300, 24, 20), (5, 32, 100, 64),
+    (5, 5, 37, 37), (4, 4, tzp.FUSED_MAX_RANK, tzp.FUSED_MAX_RANK),
+    (4, 4, tzp.FUSED_MAX_RANK + 1, tzp.FUSED_MAX_RANK),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize(
-    "d,n,ra,rb", [(2, 4, 3, 5), (3, 1, 1, 1), (5, 3, 65, 7), (4, 2, 130, 129)]
-)
+@pytest.mark.parametrize("d,n,ra,rb", ZIP_CASES)
 def test_zipper_kernel_matches_plain(dev, dtype, d, n, ra, rb):
-    g = torch.Generator().manual_seed(d + ra)
+    """Both routes against the f64 plain zipper; two calls of each give
+    the same bits; the router takes the fused route up to the limit."""
+    g = torch.Generator().manual_seed(d + n + ra + rb)
     a = _train(g, d, n, ra, dtype, dev, n0=n + 1, nl=n + 2)
     b = _train(g, d, n, rb, dtype, dev, n0=n + 1, nl=n + 2)
     if d == 2:
@@ -58,11 +68,41 @@ def test_zipper_kernel_matches_plain(dev, dtype, d, n, ra, rb):
     a64, b64 = _f64(a), _f64(b)
     na = math.sqrt(tzp.tt_inner_plain(*a64, *a64).item())
     nb = math.sqrt(tzp.tt_inner_plain(*b64, *b64).item())
+    fused = tzp.takes_fused_route(ra, rb)
     for x, y, x64, y64, scale in ((a, b, a64, b64, na * nb), (a, a, a64, a64, na * na)):
         ref = tzp.tt_inner_plain(*x64, *y64).item()
-        got = tzp.tt_inner_cuda(*x, *y)
-        assert got.dtype == dtype and got.shape == ()
-        assert abs(got.item() - ref) <= TOL[dtype] * scale
+        before = tzp.tt_inner_cuda.fused
+        tzp.tt_inner_cuda(*x, *y)
+        assert tzp.tt_inner_cuda.fused == before + fused
+        if fused:
+            assert tzp.tt_inner_cuda.last_device_launches == 2 + 2 * (d - 2)
+        for route in (tzp.tt_inner_cuda, tzp.tt_inner_chain_cuda):
+            got = route(*x, *y)
+            assert got.dtype == dtype and got.shape == ()
+            assert abs(got.item() - ref) <= TOL[dtype] * scale
+            assert torch.equal(got, route(*x, *y))
+
+
+def test_inner_entry_points_take_the_fused_route(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    inds = [Index(f"x{k}", 4) for k in range(6)]
+    a = TensorNetwork.rand_tt(inds, [5] * 5, generator=g)
+    b = TensorNetwork.rand_tt(inds, [7] * 5, generator=g)
+    pa, pb = tpk.pack(a), tpk.pack(b)
+    before = (tzp.tt_inner_cuda.launches, tzp.tt_inner_cuda.fused,
+              tzp.tt_inner_chain_cuda.launches)
+    ip = tpk.inner(pa, pb)
+    nrm = tpk.norm(pa)
+    fast = tt_inner_fast(a, b)
+    assert (tzp.tt_inner_cuda.launches, tzp.tt_inner_cuda.fused,
+            tzp.tt_inner_chain_cuda.launches) == (
+        before[0] + 3, before[1] + 3, before[2])
+    assert tzp.tt_inner_cuda.last_device_launches == 2 + 2 * 4
+    ref = tzp.tt_inner_plain(*pa, *pb).item()
+    assert math.isclose(ip.item(), ref, rel_tol=1e-10)
+    assert math.isclose(fast.item(), ref, rel_tol=1e-10)
+    assert math.isclose(nrm.item() ** 2, tzp.tt_inner_plain(*pa, *pa).item(),
+                        rel_tol=1e-10)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -163,3 +163,67 @@ def test_cpu_tensors_take_the_plain_versions():
         tev.tt_evaluate_cuda(f, m, l, idx)
     with pytest.raises(ValueError, match="precision"):
         tzp.tt_inner(f, m, l, f, m, l, precision="bf16")
+
+
+# ---- H1's routing rule and the fused step's band plan (pure Python) ----
+
+
+@pytest.mark.parametrize(
+    "ra,rb,fused",
+    [(1, 1, True), (100, 100, True), (100, 64, True), (128, 128, True),
+     (129, 128, False), (128, 129, False), (256, 256, False), (512, 300, False)],
+)
+def test_zipper_route_by_rank(ra, rb, fused):
+    assert tzp.FUSED_MAX_RANK >= 128
+    assert tzp.takes_fused_route(ra, rb) is fused
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "ra,rb,n,sms",
+    [(100, 100, 32, 132), (1, 1, 1, 132), (37, 37, 5, 132), (100, 64, 32, 132),
+     (64, 100, 2, 132), (128, 128, 32, 132), (128, 128, 300, 132),
+     (100, 100, 1, 132), (5, 128, 3, 8), (126, 3, 7, 114)],
+)
+def test_band_plan_covers_every_row_once(dtype, ra, rb, n, sms):
+    plan = tzp.band_plan(ra, rb, n, dtype, sms)
+    bands = tzp.band_rows(ra, plan.nbands)
+    rows = [r for start, stop in bands for r in range(start, stop)]
+    assert rows == list(range(ra))  # every a2 row in exactly one band, in order
+    assert all(stop > start for start, stop in bands)  # no band is empty
+    assert all(start % 4 == 0 for start, _ in bands)
+    assert plan.tmax % 4 == 0 and plan.tmax >= max(b - a for a, b in bands)
+    cols = 16 // torch.empty((), dtype=dtype).element_size()
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    assert plan.threads >= -(-rb // cols) * plan.tmax // 4
+    assert plan.smem <= 232448
+
+
+def test_band_plan_at_the_main_shape():
+    """d=50, n=32, r=100 on 132 SMs: 4 bands of 28/24 rows, 128 blocks
+    (8 bands would also fill the card, at twice the reads of W and B_i)."""
+    plan = tzp.band_plan(100, 100, 32, torch.float32, 132)
+    assert (plan.nbands, plan.tmax, plan.threads) == (4, 28, 192)
+    assert tzp.band_rows(100, 4) == [(0, 28), (28, 52), (52, 76), (76, 100)]
+    assert tzp.band_plan(100, 100, 32, torch.float64, 132).nbands == 8
+
+
+def test_zipper_device_launches():
+    assert tzp.device_launches(48, True) == 98  # 1 + 2 (d-2) + 1 at d=50
+    assert tzp.device_launches(48, False, splits=3) == 146
+    assert tzp.device_launches(0, True) == tzp.device_launches(0, False) == 2
+
+
+@pytest.mark.parametrize("r", [3, tzp.FUSED_MAX_RANK + 1])
+def test_cpu_inner_takes_the_plain_zipper_on_either_side_of_the_route(r):
+    rng = np.random.default_rng(15)
+    _, (f, m, l) = _both(_train(rng, 3, 2, r, np.float64))
+    counts = (tzp.tt_inner_cuda.launches, tzp.tt_inner_cuda.fused,
+              tzp.tt_inner_chain_cuda.launches)
+    assert torch.equal(tzp.tt_inner(f, m, l, f, m, l), tzp.tt_inner_plain(f, m, l, f, m, l))
+    assert torch.equal(tpk.inner(tpk.PackedTT(f, m, l), tpk.PackedTT(f, m, l)),
+                       tzp.tt_inner_plain(f, m, l, f, m, l))
+    assert (tzp.tt_inner_cuda.launches, tzp.tt_inner_cuda.fused,
+            tzp.tt_inner_chain_cuda.launches) == counts
+    with pytest.raises(ValueError, match="CUDA"):
+        tzp.tt_inner_chain_cuda(f, m, l, f, m, l)
