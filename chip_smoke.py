@@ -189,6 +189,111 @@ def phase_kernels_vs_plain(zp, ev, dev):
     torch.cuda.synchronize()
     print(f"phase 1 kernels vs plain: ok, {checks} checks, worst err/tol "
           f"inner {worst['inner']:.3g} evaluate {worst['evaluate']:.3g}")
+    phase_fault_cases(zp, ev, dev)
+
+
+#: tolerances of the 2-byte types, of |a||b| or max|ref|: the kernels sum
+#: in f32 and round the result to the cores' type (8 and 11 mantissa bits)
+HALF_TOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3}
+
+
+def _check_inner(zp, route, args, ref, scale, tol, what):
+    """One inner product through ``route`` against ``ref``, twice for the
+    same bits; returns err/tol."""
+    got = route(*args)
+    if got.dtype != args[0].dtype or not torch.equal(got, route(*args)):
+        raise AssertionError(f"{what}: wrong dtype, or two calls differ")
+    err = abs(got.double().item() - ref) / scale
+    if not err <= tol:
+        raise AssertionError(f"{what}: |got-ref|/(|a||b|) = {err:.3e} > {tol}")
+    return err / tol
+
+
+def _check_eval(ev, cores, idx, ref, tol, what):
+    """One grouped evaluation against ``ref``, twice for the same bits;
+    returns err/tol."""
+    got = ev.tt_evaluate_cuda(*cores, idx)
+    if got.dtype != cores[0].dtype or not torch.equal(got, ev.tt_evaluate_cuda(*cores, idx)):
+        raise AssertionError(f"{what}: wrong dtype, or two calls differ")
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: max err / max|ref| = {err:.3e} > {tol}")
+    return err / tol
+
+
+def phase_fault_cases(zp, ev, dev):
+    """What raised on the card before: ranks above 512 (the chain and
+    H2), H2 with end modes of their own, and bf16 / f16 cores through
+    both H1 routes and H2.  Each against an f64 plain result on the same
+    cores, each twice for bit-identical output."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tol = {torch.float32: 1e-4, torch.float64: 1e-10, **HALF_TOL}
+    worst, checks = {}, 0
+
+    def note(key, ratio):
+        nonlocal checks
+        worst[key] = max(worst.get(key, 0.0), ratio)
+        checks += 1
+
+    # ranks 513 and 1024 at d=6, n=8: the chain and H2
+    for r in (513, 1024):
+        a64 = _train(g, 6, 8, r, 1 / math.sqrt(8 * r), dtype=torch.float64)
+        b64 = _train(g, 6, 8, r, 1 / math.sqrt(8 * r), dtype=torch.float64)
+        e64 = _train(g, 6, 8, r, 1 / math.sqrt(r), dtype=torch.float64)
+        idx = _points(g, "random", 1000, 6, 8)
+        na = math.sqrt(zp.tt_inner_plain(*a64, *a64).item())
+        nb = math.sqrt(zp.tt_inner_plain(*b64, *b64).item())
+        ref = zp.tt_inner_plain(*a64, *b64).item()
+        eref = ev.tt_evaluate_plain(*e64, idx)
+        for dt in (torch.float32, torch.float64):
+            args = [x.to(dt) for x in a64 + b64]
+            for route in (zp.tt_inner_cuda, zp.tt_inner_chain_cuda):
+                note(f"rank {r}", _check_inner(zp, route, args, ref, na * nb, tol[dt],
+                                               f"inner r={r} {dt}"))
+            note(f"rank {r}", _check_eval(ev, [x.to(dt) for x in e64], idx, eref,
+                                          tol[dt], f"evaluate r={r} {dt}"))
+        del a64, b64, e64
+    # end modes of their own: (n0, n, nl)
+    for n0, n, nl in ((3, 8, 5), (32, 8, 1)):
+        first = _rand(g, n0, 40, dtype=torch.float64)
+        mids = _rand(g, 4, 40, n, 40, scale=1 / math.sqrt(40), dtype=torch.float64)
+        last = _rand(g, 40, nl, dtype=torch.float64)
+        idx = torch.stack([torch.randint(0, m, (1000,), generator=g, device=dev,
+                                         dtype=torch.int32)
+                           for m in [n0] + [n] * 4 + [nl]], dim=1).contiguous()
+        eref = ev.tt_evaluate_plain(first, mids, last, idx)
+        for dt in (torch.float32, torch.float64):
+            note("end modes", _check_eval(ev, [x.to(dt) for x in (first, mids, last)],
+                                          idx, eref, tol[dt],
+                                          f"evaluate (n0, n, nl)=({n0}, {n}, {nl}) {dt}"))
+    # bf16 and f16 cores at d=6, n=32: r=37 (rows not 4-byte aligned), 100,
+    # and 129 (the router's chain); trains scaled to O(1)
+    for r in (37, 100, 129):
+        # |a| ~ 1: with mids scaled 1/sqrt(n r), |a|^2 ~ n^2 r |ends|^2
+        ends = (N * N * r) ** -0.25
+        a64 = _train(g, 6, N, r, 1 / math.sqrt(N * r), ends, dtype=torch.float64)
+        b64 = _train(g, 6, N, r, 1 / math.sqrt(N * r), ends, dtype=torch.float64)
+        e64 = _train(g, 6, N, r, 1 / math.sqrt(r), dtype=torch.float64)
+        idx = _points(g, "random", 1000, 6, N)
+        for dt in (torch.bfloat16, torch.float16):
+            a, b, e = ([x.to(dt) for x in t] for t in (a64, b64, e64))
+            # the reference takes the cores as rounded to dt
+            a_r, b_r, e_r = (_f64(*t) for t in (a, b, e))
+            na = math.sqrt(zp.tt_inner_plain(*a_r, *a_r).item())
+            nb = math.sqrt(zp.tt_inner_plain(*b_r, *b_r).item())
+            for x, y, scale in ((a, b, na * nb), (a, a, na * na)):
+                ref = zp.tt_inner_plain(*_f64(*x), *_f64(*y)).item()
+                fused = zp.tt_inner_cuda.fused
+                for route in (zp.tt_inner_cuda, zp.tt_inner_chain_cuda):
+                    note(f"{dt}", _check_inner(zp, route, x + y, ref, scale, tol[dt],
+                                               f"inner r={r} {dt} {route.__name__}"))
+                if zp.tt_inner_cuda.fused - fused != 2 * zp.takes_fused_route(r, r):
+                    raise AssertionError(f"inner r={r} {dt}: wrong route")
+            eref = ev.tt_evaluate_plain(*e_r, idx)
+            note(f"{dt}", _check_eval(ev, e, idx, eref, tol[dt], f"evaluate r={r} {dt}"))
+    torch.cuda.synchronize()
+    print(f"phase 1 fault cases: ok, {checks} checks (each twice, bit-identical), "
+          "worst err/tol " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 def _points(g, pattern, bsz, d, n):
@@ -543,13 +648,62 @@ def phase_zipper_routes(zp, a, b, res):
             "bound_ms": bound, "bound_by": res["inner"]["bound_by"]}
 
 
+def phase_half_timings(zp, ev, dev):
+    """H1 (fused and chain) and H2 at the main shape with bf16 and f16
+    cores, trains scaled to O(1) (the main path's trains, with |a| ~ 1e12
+    and point values ~ 1e-26, do not fit f16): kernel against the plain
+    version on the same cores (turns P K K P), the bound with 2 bytes per
+    element, the error against the f64 plain result on those cores."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    ends = (N * N * R) ** -0.25  # |a| ~ 1
+    a64 = _train(g, D, N, R, 1 / math.sqrt(N * R), ends, dtype=torch.float64)
+    b64 = _train(g, D, N, R, 1 / math.sqrt(N * R), ends, dtype=torch.float64)
+    e64 = _train(g, D, N, R, 1 / math.sqrt(R), dtype=torch.float64)
+    idx = _points(g, "random", B, D, N)
+    out = {}
+    for dt, key in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        a, b, e = ([x.to(dt) for x in t] for t in (a64, b64, e64))
+        na = math.sqrt(zp.tt_inner_plain(*_f64(*a), *_f64(*a)).item())
+        nb = math.sqrt(zp.tt_inner_plain(*_f64(*b), *_f64(*b)).item())
+        rows = {}
+        for name, k, p, ref, bound in (
+                ("inner", lambda: zp.tt_inner_cuda(*a, *b),
+                 lambda: zp.tt_inner_plain(*a, *b),
+                 zp.tt_inner_plain(*_f64(*a), *_f64(*b)), _inner_bound(a, b)),
+                ("chain", lambda: zp.tt_inner_chain_cuda(*a, *b),
+                 lambda: zp.tt_inner_plain(*a, *b),
+                 zp.tt_inner_plain(*_f64(*a), *_f64(*b)), _inner_bound(a, b)),
+                ("evaluate", lambda: ev.tt_evaluate_cuda(*e, idx),
+                 lambda: ev.tt_evaluate_plain(*e, idx),
+                 ev.tt_evaluate_plain(*_f64(*e), idx), _evaluate_bound(e, idx))):
+            runs = [_time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)]
+            err = (k().double() - ref).abs().max().item()
+            scale = na * nb if name != "evaluate" else ref.abs().max().item()
+            rows[name] = {"ms": (runs[1] + runs[2]) / 2,
+                          "plain_ms": (runs[0] + runs[3]) / 2,
+                          "max_abs_err": err, "rel_err": err / scale,
+                          "bound_ms": bound[0], "bound_by": bound[1]}
+        rows["inner"]["device_launches"] = zp.tt_inner_cuda.last_device_launches
+        out[key] = rows
+        print(f"  {key} at d={D} n={N} r={R} (trains O(1), B={B}): "
+              + "; ".join(f"{n} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+                          f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}, "
+                          f"max abs err {v['max_abs_err']:.3e} "
+                          f"({v['rel_err']:.2e} of {'|a||b|' if n != 'evaluate' else 'max|ref|'})"
+                          for n, v in rows.items()))
+    return out
+
+
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
     library_ms is null."""
-    return {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None}
+    out = {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": None}
+    if "by_dtype" in t:  # the same kernel with 2-byte cores (phase 3)
+        out["by_dtype"] = t["by_dtype"]
+    return out
 
 
 def main() -> int:
@@ -581,6 +735,9 @@ def main() -> int:
     times = phase_timings(zp, ev, pa, pb, idx, launches)
     times["chain"] = phase_zipper_routes(zp, list(stack(pa)), list(stack(pb)),
                                          times)
+    half = phase_half_timings(zp, ev, dev)
+    for name in ("inner", "chain", "evaluate"):
+        times[name]["by_dtype"] = {k: v[name] for k, v in half.items()}
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

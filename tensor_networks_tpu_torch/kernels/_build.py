@@ -2,8 +2,9 @@
 
 Two shared libraries with plain C interfaces, loaded with ctypes:
 
-* the CUDA kernels, ``kernels/csrc/*.cu``, compiled by ONE ``nvcc``
-  invocation for ``sm_90a`` (:func:`cuda_library`);
+* the CUDA kernels, ``kernels/csrc/*.cu``, compiled for ``sm_90a`` by
+  one ``nvcc`` per source, all started together, then linked
+  (:func:`cuda_library`);
 * the contraction-path optimizer shared with the JAX package,
   ``native/path_optimizer.cpp``, compiled by ``g++``
   (:func:`compile_shared`, used by :mod:`tensor_networks_tpu_torch.native`).
@@ -34,10 +35,11 @@ NVCC_FLAGS = [
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
+#: the storage types every H1 / H2 entry point is built for
+DTYPE_SUFFIXES = ("f32", "f64", "bf16", "f16")
 
 _LOCK = threading.Lock()
 _CUDA_LIB: Optional[ctypes.CDLL] = None
@@ -49,15 +51,19 @@ def compile_shared(
     flags: List[str],
     name: str,
     headers: Sequence[Path] = (),
+    separate: bool = False,
 ) -> Path:
     """Compile ``sources`` into ``_build/<hash>/<name>`` unless present.
 
     The hash covers the compiler name, the flags and the bytes of every
-    source and header.  Raises ``RuntimeError`` carrying the compiler's
-    stderr when the build fails.
+    source and header.  With ``separate`` each source is compiled to an
+    object by a process of its own, all started together, and the
+    objects are then linked; otherwise one compiler call builds the
+    library.  Raises ``RuntimeError`` carrying the compiler's stderr
+    when the build fails.
     """
     digest = hashlib.sha256()
-    digest.update(" ".join([compiler] + flags).encode())
+    digest.update(" ".join([compiler] + flags + [str(separate)]).encode())
     for src in list(sources) + list(headers):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -66,17 +72,49 @@ def compile_shared(
     if target.exists():
         return target
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent process never
+    # build under private names, then rename: a concurrent process never
     # loads a half-written library
     tmp = out_dir / f"tmp{os.getpid()}-{name}"
-    cmd = [compiler] + flags + ["-o", str(tmp)] + [str(s) for s in sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"build of {name} failed ({' '.join(cmd)}):\n{proc.stderr}"
+    if separate:
+        objs = [out_dir / f"tmp{os.getpid()}-{s.stem}.o" for s in sources]
+        _run_all(
+            [
+                [compiler] + flags + ["-c", "-o", str(o), str(s)]
+                for s, o in zip(sources, objs)
+            ],
+            name,
+        )
+        _run_all(
+            [[compiler] + flags + ["-shared", "-o", str(tmp)]
+             + [str(o) for o in objs]],
+            name,
+        )
+        for o in objs:
+            o.unlink()
+    else:
+        _run_all(
+            [[compiler] + flags + ["-o", str(tmp)] + [str(s) for s in sources]],
+            name,
         )
     os.replace(tmp, target)
     return target
+
+
+def _run_all(cmds: List[List[str]], name: str) -> None:
+    """Start every command at once, wait for all, raise on the first
+    that failed (with its stderr)."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        for cmd in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"build of {name} failed ({' '.join(cmd)}):\n{err}"
+            )
 
 
 def find_nvcc() -> str:
@@ -103,7 +141,7 @@ _INT = ctypes.c_int
 def _bind(lib: ctypes.CDLL) -> None:
     """Declare every entry point's C signature (pointers and the stream
     as ``void*``, sizes as ``int``); each returns a ``cudaError_t``."""
-    for suffix in ("f32", "f64"):
+    for suffix in DTYPE_SUFFIXES:
         fn = getattr(lib, f"tnt_zipper_{suffix}")
         # fa ma la fb mb lb, w t part out, n0 n nl ra rb d_mid splits,
         # stream
@@ -114,14 +152,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         # stream
         fn.argtypes = [_PTR] * 9 + [_INT] * 8 + [_PTR]
         fn.restype = _INT
+        fn = getattr(lib, f"tnt_evaluate_grouped_{suffix}")
+        # first mids last idx perm tiles carry0 carry1 out,
+        # B d n0 n nl r max_tiles tile_p, stream
+        fn.argtypes = [_PTR] * 9 + [_INT] * 8 + [_PTR]
+        fn.restype = _INT
+    for suffix in ("f32", "f64"):  # the per-point yardstick
         fn = getattr(lib, f"tnt_evaluate_{suffix}")
         # first mids last idx out, B d n r, stream
         fn.argtypes = [_PTR] * 5 + [_INT] * 4 + [_PTR]
-        fn.restype = _INT
-        fn = getattr(lib, f"tnt_evaluate_grouped_{suffix}")
-        # first mids last idx perm tiles carry0 carry1 out,
-        # B d n r max_tiles tile_p, stream
-        fn.argtypes = [_PTR] * 9 + [_INT] * 6 + [_PTR]
         fn.restype = _INT
     # vals tiles, B d_mid n max_tiles tile_p, stream
     lib.tnt_group_tiles.argtypes = [_PTR] * 2 + [_INT] * 5 + [_PTR]
@@ -141,6 +180,7 @@ def cuda_library() -> ctypes.CDLL:
                 NVCC_FLAGS,
                 "libtnt_kernels.so",
                 headers=sorted(CSRC.glob("*.cuh")),
+                separate=True,
             )
             lib = ctypes.CDLL(str(path))
             _bind(lib)

@@ -45,6 +45,13 @@
 // shared-memory reads, not on FMAs.  Tensor cores (wgmma) would need
 // TF32, which does not keep f32 accuracy.
 //
+// Any rank: a block's shared memory does not depend on r, and the
+// columns are tiled over grid.y.  The end cores keep their own mode
+// sizes, first (n0, r) and last (r, nl).  Cores may be stored in float,
+// double, __nv_bfloat16 or __half; a 2-byte type is converted to float
+// as it is staged (tnt::stage), the carries and products are float, and
+// the values are written in the cores' type.
+//
 // The per-point kernel this design replaced (one warp per point) stays
 // at the end of the file as the yardstick chip_smoke.py times the
 // grouped kernel against; no entry point of the package routes to it.
@@ -66,18 +73,21 @@ constexpr size_t step_smem_bytes() {
 // One step for one tile: dst[pt, c0:c0+TILE_N] = src_row(pt) . S[:, c0:...]
 // for the tile's points pt = perm[start : start + count].
 //
-// src_row(pt) is first[idx[pt, 0], :] when from_first, else src[pt, :].
-// core is mids[k], (r, n, r); tiles holds (step, mode, start, count) per
-// tile of this step, count == 0 past the step's last tile.  vec says that
-// r is a multiple of a Pack and every pointer is 16-byte aligned.  The
-// K-slabs of V and S go through a ring of NSTAGE shared-memory stages
-// filled by cp.async, so the loads of later slabs overlap the FMAs.
-template <typename T, int TM, int TN, int TY>
+// src_row(pt) is first[idx[pt, 0], :] (first is (n0, r)) when
+// from_first, else src[pt, :].  core is mids[k], (r, n, r); tiles holds
+// (step, mode, start, count) per tile of this step, count == 0 past the
+// step's last tile.  vec says that r is a multiple of a Pack of T and
+// every pointer is 16-byte aligned.  The K-slabs of V and S go through a
+// ring of NSTAGE shared-memory stages filled by cp.async (for a 2-byte
+// storage type, by converting loads), so the loads of later slabs overlap
+// the FMAs.  src is stored as TS (the cores' type for the first step, T
+// after it), core as S.
+template <typename T, int TM, int TN, int TY, typename TS, typename S>
 __global__ void __launch_bounds__(TX * TY)
-grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
-             int from_first, const T* __restrict__ core,
+grouped_step(const TS* __restrict__ src, const int* __restrict__ idx,
+             int from_first, const S* __restrict__ core,
              const int* __restrict__ perm, const int4* __restrict__ tiles,
-             T* __restrict__ dst, int B, int d, int n, int r, int vec) {
+             T* __restrict__ dst, int B, int d, int n0, int n, int r, int vec) {
     constexpr int PK = 16 / sizeof(T);
     constexpr int TILE_P = TY * TM;
     constexpr int TILE_N = TX * TN;
@@ -105,7 +115,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
     const int col0 = blockIdx.y * TILE_N;
     const int nslab = (r + BK - 1) / BK;
 
-    const T* slice = core + (size_t)mode * r;  // S[k, c] = slice[k * n * r + c]
+    const S* slice = core + (size_t)mode * r;  // S[k, c] = slice[k * n * r + c]
     const size_t slice_ld = (size_t)n * r;
 
     // S slab: BK rows of TILE_N columns, coalesced along the columns
@@ -117,18 +127,18 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const int kk = e / (TILE_N / PK);
                 const int cp = (e % (TILE_N / PK)) * PK;
                 const bool ok = k0 + kk < r && col0 + cp < r;
-                const T* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + cp
+                const S* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + cp
                                 : slice;
-                tnt::cp_async<16>(stage + kk * TILE_N + cp, g, ok);
+                tnt::stage<PK>(stage + kk * TILE_N + cp, g, ok);
             }
         } else {
             for (int e = tid; e < BK * TILE_N; e += THREADS) {
                 const int kk = e / TILE_N;
                 const int c = e % TILE_N;
                 const bool ok = k0 + kk < r && col0 + c < r;
-                const T* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + c
+                const S* g = ok ? slice + (size_t)(k0 + kk) * slice_ld + col0 + c
                                 : slice;
-                tnt::cp_async<sizeof(T)>(stage + kk * TILE_N + c, g, ok);
+                tnt::stage<1>(stage + kk * TILE_N + c, g, ok);
             }
         }
     };
@@ -142,8 +152,8 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const int kp = (e % (BK / PK)) * PK;
                 const int row = src_row[p];
                 const bool ok = row >= 0 && k0 + kp < r;
-                const T* g = ok ? src + (size_t)row * r + k0 + kp : src;
-                tnt::cp_async<16>(stage + p * LDA + kp, g, ok);
+                const TS* g = ok ? src + (size_t)row * r + k0 + kp : src;
+                tnt::stage<PK>(stage + p * LDA + kp, g, ok);
             }
         } else {
             for (int e = tid; e < TILE_P * BK; e += THREADS) {
@@ -151,8 +161,8 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
                 const int kk = e % BK;
                 const int row = src_row[p];
                 const bool ok = row >= 0 && k0 + kk < r;
-                const T* g = ok ? src + (size_t)row * r + k0 + kk : src;
-                tnt::cp_async<sizeof(T)>(stage + p * LDA + kk, g, ok);
+                const TS* g = ok ? src + (size_t)row * r + k0 + kk : src;
+                tnt::stage<1>(stage + p * LDA + kk, g, ok);
             }
         }
     };
@@ -164,7 +174,7 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
         int pt = -1, row = -1;
         if (p < count) {
             pt = tnt::clamp_index(perm[start + p], B);
-            row = from_first ? tnt::clamp_index(idx[(size_t)pt * d], n) : pt;
+            row = from_first ? tnt::clamp_index(idx[(size_t)pt * d], n0) : pt;
         }
         dst_row[p] = pt;
         src_row[p] = row;
@@ -245,24 +255,26 @@ grouped_step(const T* __restrict__ src, const int* __restrict__ idx,
 
 constexpr int FINISH_WARPS = 8;
 
-// out[b] = src_row(b) . last[:, idx[b, d-1]], one warp per point.
-template <typename T>
+// out[b] = src_row(b) . last[:, idx[b, d-1]], one warp per point; last
+// is (r, nl), first (n0, r); src is stored as TS, last and out as S.
+template <typename T, typename TS, typename S>
 __global__ void __launch_bounds__(FINISH_WARPS * 32)
-grouped_finish(const T* __restrict__ src, const int* __restrict__ idx,
-               int from_first, const T* __restrict__ last,
-               T* __restrict__ out, int B, int d, int n, int r) {
+grouped_finish(const TS* __restrict__ src, const int* __restrict__ idx,
+               int from_first, const S* __restrict__ last,
+               S* __restrict__ out, int B, int d, int n0, int nl, int r) {
     const int b = blockIdx.x * FINISH_WARPS + threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     tnt::wait_for_previous_grid();
     if (b >= B) return;
     const int* ib = idx + (size_t)b * d;
-    const int row = from_first ? tnt::clamp_index(ib[0], n) : b;
-    const int cl = tnt::clamp_index(ib[d - 1], n);
-    const T* v = src + (size_t)row * r;
+    const int row = from_first ? tnt::clamp_index(ib[0], n0) : b;
+    const int cl = tnt::clamp_index(ib[d - 1], nl);
+    const TS* v = src + (size_t)row * r;
     T s = T(0);
-    for (int j = lane; j < r; j += 32) s = fma(v[j], last[(size_t)j * n + cl], s);
+    for (int j = lane; j < r; j += 32)
+        s = fma(T(tnt::to_acc(v[j])), T(tnt::to_acc(last[(size_t)j * nl + cl])), s);
     s = tnt::warp_sum(s);
-    if (lane == 0) out[b] = s;
+    if (lane == 0) out[b] = tnt::Store<S>::from(s);
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -287,16 +299,28 @@ constexpr int TILE_P = 32;  // points per tile, = TM * TY for both types
 static_assert(StepTile<float>::TM * StepTile<float>::TY == TILE_P, "");
 static_assert(StepTile<double>::TM * StepTile<double>::TY == TILE_P, "");
 
-// first (n, r), mids (d-2, r, n, r), last (r, n), idx (B, d) int32;
-// perm (d-2, B) int32 and tiles (d-2, max_tiles, 4) int32 from the
-// wrapper's grouping tables, cut for tiles of tile_p points; carry0 and
-// carry1 (B, r) scratch; out (B,).  r <= 512, B >= 1, d >= 2.
-template <typename T>
-int evaluate_grouped(const T* first, const T* mids, const T* last,
+// Sets the opt-in shared-memory size of one step instantiation.
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+    if (smem <= 48 * 1024) return 0;  // above 48 KB shared memory is an opt-in
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    return (int)err;
+}
+
+// first (n0, r), mids (d-2, r, n, r), last (r, nl), all stored as S;
+// idx (B, d) int32; perm (d-2, B) int32 and tiles (d-2, max_tiles, 4)
+// int32 from the wrapper's grouping tables, cut for tiles of tile_p
+// points; carry0 and carry1 (B, r) scratch in T = Acc<S>; out (B,) in S.
+// Any r >= 1, B >= 1, d >= 2.
+template <typename S, typename T = typename tnt::Acc<S>::type>
+int evaluate_grouped(const S* first, const S* mids, const S* last,
                      const int* idx, const int* perm, const int* tiles,
-                     T* carry0, T* carry1, T* out, int B, int d, int n, int r,
-                     int max_tiles, int tile_p, cudaStream_t stream) {
-    if (r > 512 || B < 1 || d < 2 || n < 1 || tile_p != TILE_P)
+                     T* carry0, T* carry1, S* out, int B, int d, int n0,
+                     int n, int nl, int r, int max_tiles, int tile_p,
+                     cudaStream_t stream) {
+    if (r < 1 || B < 1 || d < 2 || n0 < 1 || nl < 1 || (d > 2 && n < 1) ||
+        tile_p != TILE_P)
         return (int)cudaErrorInvalidValue;
     constexpr int PK = 16 / sizeof(T);
     constexpr int TM = StepTile<T>::TM, TN = StepTile<T>::TN,
@@ -306,36 +330,44 @@ int evaluate_grouped(const T* first, const T* mids, const T* last,
     const int vec = r % PK == 0 && tnt::aligned16(first) &&
                     tnt::aligned16(mids) && tnt::aligned16(carry0) &&
                     tnt::aligned16(carry1);
+    // the first step reads its rows from first (S), the later ones from a
+    // carry (T); for float and double the two are one instantiation
+    auto first_step = grouped_step<T, TM, TN, TY, S, S>;
+    auto next_step = grouped_step<T, TM, TN, TY, T, S>;
     if (d_mid > 0) {
         if (!tnt::aligned16(tiles)) return (int)cudaErrorInvalidValue;
-        if (smem > 48 * 1024) {  // above 48 KB shared memory is an opt-in
-            cudaError_t err = cudaFuncSetAttribute(
-                grouped_step<T, TM, TN, TY>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (err != cudaSuccess) return (int)err;
-        }
+        int rc = allow_smem(first_step, smem);
+        if (!rc) rc = allow_smem(next_step, smem);
+        if (rc) return rc;
     }
     T* bufs[2] = {carry0, carry1};
-    const T* src = first;
-    int from_first = 1;
     const size_t core_sz = (size_t)r * n * r;
     const dim3 grid(max_tiles, cdiv(r, TX * TN));
     for (int k = 0; k < d_mid; ++k) {
         T* dst = bufs[k & 1];
+        const int* perm_k = perm + (size_t)k * B;
+        const int4* tiles_k =
+            reinterpret_cast<const int4*>(tiles + (size_t)k * max_tiles * 4);
         // the first step is an ordinary launch: the kernel before it on
         // the stream may be the one that writes the grouping tables
-        const int rc = tnt::launch_after(
-            grouped_step<T, TM, TN, TY>, grid, TX * TY, smem, stream, k > 0,
-            src, idx, from_first, mids + k * core_sz, perm + (size_t)k * B,
-            reinterpret_cast<const int4*>(tiles + (size_t)k * max_tiles * 4),
-            dst, B, d, n, r, vec);
+        const int rc =
+            k == 0 ? tnt::launch_after(first_step, grid, TX * TY, smem, stream,
+                                       false, first, idx, 1, mids, perm_k,
+                                       tiles_k, dst, B, d, n0, n, r, vec)
+                   : tnt::launch_after(next_step, grid, TX * TY, smem, stream,
+                                       true, (const T*)bufs[(k - 1) & 1], idx,
+                                       0, mids + k * core_sz, perm_k, tiles_k,
+                                       dst, B, d, n0, n, r, vec);
         if (rc) return rc;
-        src = dst;
-        from_first = 0;
     }
-    return tnt::launch_after(grouped_finish<T>, dim3(cdiv(B, FINISH_WARPS)),
-                        FINISH_WARPS * 32, 0, stream, d_mid > 0, src, idx,
-                        from_first, last, out, B, d, n, r);
+    const dim3 fgrid(cdiv(B, FINISH_WARPS));
+    if (d_mid == 0)
+        return tnt::launch_after(grouped_finish<T, S, S>, fgrid,
+                                 FINISH_WARPS * 32, 0, stream, false, first,
+                                 idx, 1, last, out, B, d, n0, nl, r);
+    return tnt::launch_after(grouped_finish<T, T, S>, fgrid, FINISH_WARPS * 32,
+                             0, stream, true, (const T*)bufs[(d_mid - 1) & 1],
+                             idx, 0, last, out, B, d, n0, nl, r);
 }
 
 // ---- the tile list: from each step's sorted modes, the tiles as
@@ -483,31 +515,28 @@ int evaluate(const T* first, const T* mids, const T* last, const int* idx,
 
 }  // namespace
 
+// One entry point per storage type: the cores and out in S, the carries
+// in Acc<S>.
+#define TNT_EVALUATE_GROUPED_ENTRY(SUFFIX, S)                                  \
+    int tnt_evaluate_grouped_##SUFFIX(                                         \
+        const void* first, const void* mids, const void* last,                 \
+        const void* idx, const void* perm, const void* tiles, void* carry0,    \
+        void* carry1, void* out, int B, int d, int n0, int n, int nl, int r,   \
+        int max_tiles, int tile_p, void* stream) {                             \
+        using T = tnt::Acc<S>::type;                                           \
+        return evaluate_grouped<S>(                                            \
+            (const S*)first, (const S*)mids, (const S*)last, (const int*)idx,  \
+            (const int*)perm, (const int*)tiles, (T*)carry0, (T*)carry1,       \
+            (S*)out, B, d, n0, n, nl, r, max_tiles, tile_p,                    \
+            (cudaStream_t)stream);                                             \
+    }
+
 extern "C" {
 
-int tnt_evaluate_grouped_f32(const void* first, const void* mids,
-                             const void* last, const void* idx,
-                             const void* perm, const void* tiles, void* carry0,
-                             void* carry1, void* out, int B, int d, int n,
-                             int r, int max_tiles, int tile_p, void* stream) {
-    return evaluate_grouped<float>(
-        (const float*)first, (const float*)mids, (const float*)last,
-        (const int*)idx, (const int*)perm, (const int*)tiles, (float*)carry0,
-        (float*)carry1, (float*)out, B, d, n, r, max_tiles, tile_p,
-        (cudaStream_t)stream);
-}
-
-int tnt_evaluate_grouped_f64(const void* first, const void* mids,
-                             const void* last, const void* idx,
-                             const void* perm, const void* tiles, void* carry0,
-                             void* carry1, void* out, int B, int d, int n,
-                             int r, int max_tiles, int tile_p, void* stream) {
-    return evaluate_grouped<double>(
-        (const double*)first, (const double*)mids, (const double*)last,
-        (const int*)idx, (const int*)perm, (const int*)tiles, (double*)carry0,
-        (double*)carry1, (double*)out, B, d, n, r, max_tiles, tile_p,
-        (cudaStream_t)stream);
-}
+TNT_EVALUATE_GROUPED_ENTRY(f32, float)
+TNT_EVALUATE_GROUPED_ENTRY(f64, double)
+TNT_EVALUATE_GROUPED_ENTRY(bf16, __nv_bfloat16)
+TNT_EVALUATE_GROUPED_ENTRY(f16, __half)
 
 // vals (d_mid, B) int32, each row sorted, values in [0, n);
 // tiles (d_mid, max_tiles, 4) int32 out.

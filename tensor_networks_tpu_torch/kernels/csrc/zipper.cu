@@ -38,7 +38,14 @@
 // the fused route is ~2 us of FMAs on each SM, so the chain of dependent
 // launches and the reduce cost about as much as the arithmetic.  No
 // atomics and a fixed summation order: two calls give the same bits.  No
-// 128-padding: any r_a != r_b, any n, ranks up to 512, d_mid >= 0.
+// 128-padding: any r_a != r_b, any n, any rank (the chain's GEMMs tile
+// every M, N and K), d_mid >= 0.
+//
+// Storage types: cores in float, double, __nv_bfloat16 or __half.  The
+// 2-byte types are converted to float as they are loaded (tnt::stage);
+// W, t, part and every product are float, and the scalar is written back
+// in the cores' type.  Shared memory holds float, so the fused route's
+// bands for a 2-byte type are float's.
 
 #include "common.cuh"
 
@@ -50,12 +57,12 @@ constexpr int BK = 16;
 constexpr int THREADS = 256;  // 16 x 16, each a 4 x 4 micro-tile
 
 // C[M x N] (row-major, ld N) = At^T B with At (K x M, ld lda) and
-// B (K x N, ld ldb), both row-major.  blockIdx.z takes the K range
-// [z * kchunk, (z + 1) * kchunk) and writes its partial product to the
-// z-th (M x N) slab of C.
-template <typename T>
+// B (K x N, ld ldb), both row-major, read as T (each may be stored in
+// another type).  blockIdx.z takes the K range [z * kchunk, (z + 1) *
+// kchunk) and writes its partial product to the z-th (M x N) slab of C.
+template <typename T, typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS)
-gemm_tn(const T* __restrict__ At, int lda, const T* __restrict__ B, int ldb,
+gemm_tn(const TA* __restrict__ At, int lda, const TB* __restrict__ B, int ldb,
         T* __restrict__ C, int M, int N, int K, int kchunk) {
     __shared__ T As[BK][BM];
     __shared__ T Bs[BK][BN];
@@ -81,12 +88,14 @@ gemm_tn(const T* __restrict__ At, int lda, const T* __restrict__ B, int ldb,
         for (int e = tid; e < BK * BM; e += THREADS) {
             const int kk = e / BM, mm = e % BM;
             const int k = k0 + kk, m = m0 + mm;
-            As[kk][mm] = (k < kend && m < M) ? At[(size_t)k * lda + m] : T(0);
+            As[kk][mm] =
+                (k < kend && m < M) ? tnt::to_acc(At[(size_t)k * lda + m]) : T(0);
         }
         for (int e = tid; e < BK * BN; e += THREADS) {
             const int kk = e / BN, nn = e % BN;
             const int k = k0 + kk, n = n0 + nn;
-            Bs[kk][nn] = (k < kend && n < N) ? B[(size_t)k * ldb + n] : T(0);
+            Bs[kk][nn] =
+                (k < kend && n < N) ? tnt::to_acc(B[(size_t)k * ldb + n]) : T(0);
         }
         __syncthreads();
 #pragma unroll
@@ -129,19 +138,20 @@ __global__ void reduce_splits(const T* __restrict__ part, T* __restrict__ C,
 }
 
 // out = sum_{a,b} W[a,b] * sum_n la[a,n] lb[b,n], one block, fixed order.
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(THREADS)
-zipper_epilogue(const T* __restrict__ W, const T* __restrict__ la,
-                const T* __restrict__ lb, T* __restrict__ out, int ra, int rb,
+zipper_epilogue(const T* __restrict__ W, const S* __restrict__ la,
+                const S* __restrict__ lb, S* __restrict__ out, int ra, int rb,
                 int n) {
     __shared__ T warp_part[THREADS / 32];
     T s = T(0);
     for (int p = threadIdx.x; p < ra * rb; p += THREADS) {
         const int a = p / rb, b = p % rb;
-        const T* x = la + (size_t)a * n;
-        const T* y = lb + (size_t)b * n;
+        const S* x = la + (size_t)a * n;
+        const S* y = lb + (size_t)b * n;
         T lab = T(0);
-        for (int j = 0; j < n; ++j) lab = fma(x[j], y[j], lab);
+        for (int j = 0; j < n; ++j)
+            lab = fma(tnt::to_acc(x[j]), tnt::to_acc(y[j]), lab);
         s = fma(W[p], lab, s);
     }
     s = tnt::warp_sum(s);
@@ -150,7 +160,7 @@ zipper_epilogue(const T* __restrict__ W, const T* __restrict__ la,
     if (threadIdx.x < 32) {
         T v = threadIdx.x < THREADS / 32 ? warp_part[threadIdx.x] : T(0);
         v = tnt::warp_sum(v);
-        if (threadIdx.x == 0) out[0] = v;
+        if (threadIdx.x == 0) out[0] = tnt::Store<S>::from(v);
     }
 }
 
@@ -158,8 +168,8 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // One GEMM launch; splits > 1 writes `splits` partial slabs to `part`
 // and reduces them into C.
-template <typename T>
-int gemm(const T* At, int lda, const T* B, int ldb, T* C, T* part, int M,
+template <typename T, typename TA, typename TB>
+int gemm(const TA* At, int lda, const TB* B, int ldb, T* C, T* part, int M,
          int N, int K, int splits, cudaStream_t stream) {
     int kchunk = cdiv(cdiv(K, splits), BK) * BK;
     splits = kchunk > 0 ? cdiv(K, kchunk) : 1;
@@ -180,13 +190,17 @@ int gemm(const T* At, int lda, const T* B, int ldb, T* C, T* part, int M,
     return 0;
 }
 
-// fa (n0, ra), ma (d_mid, ra, n, ra), la (ra, nl); likewise b with rb.
-// Workspace: w (ra*rb), t (rb*n*ra), part (splits*ra*rb, unused when
-// splits == 1).  Writes the scalar to out[0].
-template <typename T>
-int zipper(const T* fa, const T* ma, const T* la, const T* fb, const T* mb,
-           const T* lb, T* w, T* t, T* part, T* out, int n0, int n, int nl,
+// fa (n0, ra), ma (d_mid, ra, n, ra), la (ra, nl); likewise b with rb;
+// all stored as S.  Workspace, in T = Acc<S>: w (ra*rb), t (rb*n*ra),
+// part (splits*ra*rb, unused when splits == 1).  Writes the scalar to
+// out[0], in S.
+template <typename S, typename T = typename tnt::Acc<S>::type>
+int zipper(const S* fa, const S* ma, const S* la, const S* fb, const S* mb,
+           const S* lb, T* w, T* t, T* part, S* out, int n0, int n, int nl,
            int ra, int rb, int d_mid, int splits, cudaStream_t stream) {
+    if (ra < 1 || rb < 1 || n0 < 1 || nl < 1 || d_mid < 0 ||
+        (d_mid > 0 && n < 1))
+        return (int)cudaErrorInvalidValue;
     int rc = gemm<T>(fa, ra, fb, rb, w, part, ra, rb, n0, 1, stream);
     if (rc) return rc;
     const size_t core_a = (size_t)ra * n * ra;
@@ -201,7 +215,8 @@ int zipper(const T* fa, const T* ma, const T* la, const T* fb, const T* mb,
                      splits, stream);
         if (rc) return rc;
     }
-    zipper_epilogue<T><<<1, THREADS, 0, stream>>>(w, la, lb, out, ra, rb, nl);
+    zipper_epilogue<S, T><<<1, THREADS, 0, stream>>>(w, la, lb, out, ra, rb,
+                                                     nl);
     TNT_CHECK_LAUNCH();
     return 0;
 }
@@ -267,15 +282,16 @@ __device__ __forceinline__ void fma_slab(T (&acc)[STEP_TM][TN],
 // (rb, n, rb), W (ra, rb), part (n, ra, rb).  The band's rows are whole
 // units of STEP_TM rows spread as evenly as possible over nbands
 // (kernels/zipper.py::band_rows); tmax is the largest band, rounded up to
-// STEP_TM.  vec_a: ra is a multiple of a Pack and A is 16-byte aligned;
-// vec_b: the same for rb, B, W and part.
+// STEP_TM.  vec_a: ra is a multiple of a Pack of T and A is 16-byte
+// aligned; vec_b: the same for rb, B, W and part.  A and B are stored as
+// S and staged into shared memory as T (tnt::stage).
 //
 // Before griddepcontrol.wait the block reads only the cores: its slice
 // A[:, i, band] and the first K-slabs of B[:, i, :].  W (the reduce's
 // output) and part (the reduce's input) are touched only after it.
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(STEP_MAX_THREADS)
-zip_step(const T* __restrict__ A, const T* __restrict__ B,
+zip_step(const S* __restrict__ A, const S* __restrict__ B,
          const T* __restrict__ W, T* __restrict__ part, int n, int ra, int rb,
          int nbands, int tmax, int vec_a, int vec_b) {
     constexpr int PK = 16 / sizeof(T);
@@ -304,28 +320,28 @@ zip_step(const T* __restrict__ A, const T* __restrict__ B,
     const bool active = ty < tmax / STEP_TM;
     const int nslab_a = (ra + BK - 1) / BK;
     const int nslab_b = (rb + BK - 1) / BK;
-    const T* Ai = A + (size_t)mode * ra + band0;  // A[a, i, band0 + m]
-    const T* Bi = B + (size_t)mode * rb;          // B[b, i, c]
+    const S* Ai = A + (size_t)mode * ra + band0;  // A[a, i, band0 + m]
+    const S* Bi = B + (size_t)mode * rb;          // B[b, i, c]
     const size_t lda_g = (size_t)n * ra;
     const size_t ldb_g = (size_t)n * rb;
 
-    // rows k0 .. k0 + BK of a (K x rb) operand with row stride ld
-    auto load_slab = [&](T* stage, const T* src, size_t ld, int k0, int K) {
+    // rows k0 .. k0 + BK of a (K x rb) operand with row stride ld: W
+    // (stored as T) or B_i (stored as S)
+    auto load_slab = [&](T* stage, const auto* src, size_t ld, int k0, int K) {
         if (vec_b) {
             const int cp = np / PK;
             for (int e = tid; e < BK * cp; e += nthreads) {
                 const int kk = e / cp, c = (e % cp) * PK;
                 const bool ok = k0 + kk < K && c < rb;
-                tnt::cp_async<16>(stage + kk * np + c,
-                                  ok ? src + (size_t)(k0 + kk) * ld + c : src, ok);
+                tnt::stage<PK>(stage + kk * np + c,
+                               ok ? src + (size_t)(k0 + kk) * ld + c : src, ok);
             }
         } else {
             for (int e = tid; e < BK * np; e += nthreads) {
                 const int kk = e / np, c = e % np;
                 const bool ok = k0 + kk < K && c < rb;
-                tnt::cp_async<sizeof(T)>(stage + kk * np + c,
-                                         ok ? src + (size_t)(k0 + kk) * ld + c : src,
-                                         ok);
+                tnt::stage<1>(stage + kk * np + c,
+                              ok ? src + (size_t)(k0 + kk) * ld + c : src, ok);
             }
         }
     };
@@ -336,14 +352,13 @@ zip_step(const T* __restrict__ A, const T* __restrict__ B,
         for (int e = tid; e < ra * mp; e += nthreads) {
             const int a = e / mp, m = (e % mp) * PK;
             const bool ok = m < rows;
-            tnt::cp_async<16>(As + a * tmax + m, ok ? Ai + a * lda_g + m : Ai, ok);
+            tnt::stage<PK>(As + a * tmax + m, ok ? Ai + a * lda_g + m : Ai, ok);
         }
     } else {
         for (int e = tid; e < ra * tmax; e += nthreads) {
             const int a = e / tmax, m = e % tmax;
             const bool ok = m < rows;
-            tnt::cp_async<sizeof(T)>(As + a * tmax + m, ok ? Ai + a * lda_g + m : Ai,
-                                     ok);
+            tnt::stage<1>(As + a * tmax + m, ok ? Ai + a * lda_g + m : Ai, ok);
         }
     }
     for (int s = 0; s < NSTAGE - 1; ++s)
@@ -485,10 +500,10 @@ zip_reduce(const T* __restrict__ part, T* __restrict__ W, int n, int mn,
 // out = sum_{a, j} la[a, j] sum_b W[a, b] lb[b, j], one block, fixed order:
 // a thread takes the (a, j) pairs tid, tid + LAST_THREADS, ... (a warp
 // shares a and reads W's row as a broadcast, lb's row coalesced).
-template <typename T>
+template <typename S, typename T>
 __global__ void __launch_bounds__(LAST_THREADS)
-zip_last(const T* __restrict__ W, const T* __restrict__ la,
-         const T* __restrict__ lb, T* __restrict__ out, int ra, int rb, int nl) {
+zip_last(const T* __restrict__ W, const S* __restrict__ la,
+         const S* __restrict__ lb, S* __restrict__ out, int ra, int rb, int nl) {
     __shared__ T warp_part[LAST_THREADS / 32];
     tnt::wait_for_previous_grid();
     T s = T(0);
@@ -500,9 +515,11 @@ zip_last(const T* __restrict__ W, const T* __restrict__ la,
         for (; b + 4 <= rb; b += 4)
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-                v[q] = fma(w[b + q], lb[(size_t)(b + q) * nl + j], v[q]);
-        for (; b < rb; ++b) v[0] = fma(w[b], lb[(size_t)b * nl + j], v[0]);
-        s = fma(la[(size_t)a * nl + j], (v[0] + v[1]) + (v[2] + v[3]), s);
+                v[q] = fma(w[b + q], tnt::to_acc(lb[(size_t)(b + q) * nl + j]), v[q]);
+        for (; b < rb; ++b)
+            v[0] = fma(w[b], tnt::to_acc(lb[(size_t)b * nl + j]), v[0]);
+        s = fma(tnt::to_acc(la[(size_t)a * nl + j]), (v[0] + v[1]) + (v[2] + v[3]),
+                s);
     }
     s = tnt::warp_sum(s);
     if (threadIdx.x % 32 == 0) warp_part[threadIdx.x / 32] = s;
@@ -510,18 +527,19 @@ zip_last(const T* __restrict__ W, const T* __restrict__ la,
     if (threadIdx.x < 32) {
         T v = warp_part[threadIdx.x];
         v = tnt::warp_sum(v);
-        if (threadIdx.x == 0) out[0] = v;
+        if (threadIdx.x == 0) out[0] = tnt::Store<S>::from(v);
     }
 }
 
 // The fused route: W0 = fa^T fb (one gemm_tn), then per middle core pair
 // zip_step and zip_reduce, then zip_last; every launch after the first is
 // a programmatic dependent launch.  1 + 2 * d_mid + 1 launches.  nbands
-// and tmax come from kernels/zipper.py::band_plan.  w (ra*rb) and part
-// (n*ra*rb, unused when d_mid == 0) are scratch; out[0] gets the scalar.
-template <typename T>
-int zipper_fused(const T* fa, const T* ma, const T* la, const T* fb,
-                 const T* mb, const T* lb, T* w, T* part, T* out, int n0,
+// and tmax come from kernels/zipper.py::band_plan, for T.  w (ra*rb) and
+// part (n*ra*rb, unused when d_mid == 0) are scratch in T = Acc<S>;
+// out[0] gets the scalar, in S.
+template <typename S, typename T = typename tnt::Acc<S>::type>
+int zipper_fused(const S* fa, const S* ma, const S* la, const S* fb,
+                 const S* mb, const S* lb, T* w, T* part, S* out, int n0,
                  int n, int nl, int ra, int rb, int d_mid, int nbands,
                  int tmax, cudaStream_t stream) {
     constexpr int PK = 16 / sizeof(T);
@@ -546,7 +564,7 @@ int zipper_fused(const T* fa, const T* ma, const T* la, const T* fb,
             ((size_t)(ra + rb) * tmax + 2 * NSTAGE * BK * np) * sizeof(T);
         if (smem > 48 * 1024) {  // above 48 KB shared memory is an opt-in
             cudaError_t err = cudaFuncSetAttribute(
-                zip_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                zip_step<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                 (int)smem);
             if (err != cudaSuccess) return (int)err;
         }
@@ -561,7 +579,7 @@ int zipper_fused(const T* fa, const T* ma, const T* la, const T* fb,
         const size_t core_b = (size_t)rb * n * rb;
         for (int k = 0; k < d_mid; ++k) {
             int rc = tnt::launch_after(
-                zip_step<T>, dim3(n, nbands), threads, smem, stream, true,
+                zip_step<S, T>, dim3(n, nbands), threads, smem, stream, true,
                 ma + k * core_a, mb + k * core_b, (const T*)w, part, n, ra, rb,
                 nbands, tmax, vec_a, vec_b);
             if (rc) return rc;
@@ -571,60 +589,44 @@ int zipper_fused(const T* fa, const T* ma, const T* la, const T* fb,
             if (rc) return rc;
         }
     }
-    return tnt::launch_after(zip_last<T>, dim3(1), LAST_THREADS, 0, stream,
+    return tnt::launch_after(zip_last<S, T>, dim3(1), LAST_THREADS, 0, stream,
                              true, (const T*)w, la, lb, out, ra, rb, nl);
 }
 
 }  // namespace
 
+// One set of entry points per storage type: fa ma la fb mb lb and out in
+// the cores' type, the scratch (w, t, part) in its Acc type.
+#define TNT_ZIPPER_ENTRIES(SUFFIX, S)                                          \
+    int tnt_zipper_##SUFFIX(const void* fa, const void* ma, const void* la,    \
+                            const void* fb, const void* mb, const void* lb,    \
+                            void* w, void* t, void* part, void* out, int n0,   \
+                            int n, int nl, int ra, int rb, int d_mid,          \
+                            int splits, void* stream) {                        \
+        using T = tnt::Acc<S>::type;                                           \
+        return zipper<S>((const S*)fa, (const S*)ma, (const S*)la,             \
+                         (const S*)fb, (const S*)mb, (const S*)lb, (T*)w,      \
+                         (T*)t, (T*)part, (S*)out, n0, n, nl, ra, rb, d_mid,   \
+                         splits, (cudaStream_t)stream);                        \
+    }                                                                          \
+    int tnt_zipper_fused_##SUFFIX(                                             \
+        const void* fa, const void* ma, const void* la, const void* fb,        \
+        const void* mb, const void* lb, void* w, void* part, void* out,        \
+        int n0, int n, int nl, int ra, int rb, int d_mid, int nbands,          \
+        int tmax, void* stream) {                                              \
+        using T = tnt::Acc<S>::type;                                           \
+        return zipper_fused<S>((const S*)fa, (const S*)ma, (const S*)la,       \
+                               (const S*)fb, (const S*)mb, (const S*)lb,       \
+                               (T*)w, (T*)part, (S*)out, n0, n, nl, ra, rb,    \
+                               d_mid, nbands, tmax, (cudaStream_t)stream);     \
+    }
+
 extern "C" {
 
-int tnt_zipper_f32(const void* fa, const void* ma, const void* la,
-                   const void* fb, const void* mb, const void* lb, void* w,
-                   void* t, void* part, void* out, int n0, int n, int nl,
-                   int ra, int rb, int d_mid, int splits, void* stream) {
-    return zipper<float>(
-        (const float*)fa, (const float*)ma, (const float*)la,
-        (const float*)fb, (const float*)mb, (const float*)lb, (float*)w,
-        (float*)t, (float*)part, (float*)out, n0, n, nl, ra, rb, d_mid, splits,
-        (cudaStream_t)stream);
-}
-
-int tnt_zipper_f64(const void* fa, const void* ma, const void* la,
-                   const void* fb, const void* mb, const void* lb, void* w,
-                   void* t, void* part, void* out, int n0, int n, int nl,
-                   int ra, int rb, int d_mid, int splits, void* stream) {
-    return zipper<double>(
-        (const double*)fa, (const double*)ma, (const double*)la,
-        (const double*)fb, (const double*)mb, (const double*)lb, (double*)w,
-        (double*)t, (double*)part, (double*)out, n0, n, nl, ra, rb, d_mid,
-        splits,
-        (cudaStream_t)stream);
-}
-
-int tnt_zipper_fused_f32(const void* fa, const void* ma, const void* la,
-                         const void* fb, const void* mb, const void* lb,
-                         void* w, void* part, void* out, int n0, int n, int nl,
-                         int ra, int rb, int d_mid, int nbands, int tmax,
-                         void* stream) {
-    return zipper_fused<float>(
-        (const float*)fa, (const float*)ma, (const float*)la,
-        (const float*)fb, (const float*)mb, (const float*)lb, (float*)w,
-        (float*)part, (float*)out, n0, n, nl, ra, rb, d_mid, nbands, tmax,
-        (cudaStream_t)stream);
-}
-
-int tnt_zipper_fused_f64(const void* fa, const void* ma, const void* la,
-                         const void* fb, const void* mb, const void* lb,
-                         void* w, void* part, void* out, int n0, int n, int nl,
-                         int ra, int rb, int d_mid, int nbands, int tmax,
-                         void* stream) {
-    return zipper_fused<double>(
-        (const double*)fa, (const double*)ma, (const double*)la,
-        (const double*)fb, (const double*)mb, (const double*)lb, (double*)w,
-        (double*)part, (double*)out, n0, n, nl, ra, rb, d_mid, nbands, tmax,
-        (cudaStream_t)stream);
-}
+TNT_ZIPPER_ENTRIES(f32, float)
+TNT_ZIPPER_ENTRIES(f64, double)
+TNT_ZIPPER_ENTRIES(bf16, __nv_bfloat16)
+TNT_ZIPPER_ENTRIES(f16, __half)
 
 const char* tnt_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

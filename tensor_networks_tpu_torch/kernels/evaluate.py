@@ -23,6 +23,12 @@ is a small kernel of its own on the card: written as torch ops it is
 card.  A caller with several trains at the same points builds the
 tables once and passes them in.
 
+The kernel takes any rank, end cores with their own mode sizes (first
+(n0, r), last (r, nl)), and float32, float64, bfloat16 or float16
+cores: 2-byte cores are converted to float32 as they are loaded, the
+carries are float32 (allocated by the wrapper), and the values come
+back in the cores' dtype.
+
 Routing: :func:`tt_evaluate` sends CUDA tensors to the kernel (which
 raises on what it cannot take) and CPU tensors to
 :func:`tt_evaluate_plain`.  There is no fallback from the kernel.
@@ -38,7 +44,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from tensor_networks_tpu_torch.kernels import _build
-from tensor_networks_tpu_torch.kernels.zipper import MAX_RANK, _check_precision
+from tensor_networks_tpu_torch.kernels.zipper import (
+    DTYPE_SUFFIX,
+    _check_dtype,
+    _check_precision,
+    acc_dtype,
+)
 
 TILE_P = 32  # points per tile; the kernel is instantiated for this size
 
@@ -205,7 +216,8 @@ def tt_evaluate_grouped_plain(
 
 
 def _check_eval_args(first, mids, last, idx):
-    """Raise on what the kernels do not take; returns (B, d, n, r)."""
+    """Raise on what the kernels do not take; returns
+    (B, d, n0, n, nl, r), with n = n0 when there are no middle cores."""
     dev = first.device
     dtype = first.dtype
     if dev.type != "cuda":
@@ -217,25 +229,24 @@ def _check_eval_args(first, mids, last, idx):
     for x in cores + [idx]:
         if not x.is_contiguous():
             raise ValueError("cores and indices must be contiguous")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    _check_dtype(dtype)
     if idx.device != dev or idx.dtype != torch.int32 or idx.ndim != 2:
         raise ValueError("idx must be a (B, d) int32 tensor on the cores' device")
-    n, r = first.shape
+    n0, r = first.shape
+    nl = last.shape[1] if last.ndim == 2 else -1
     d_mid = 0 if mids is None else mids.shape[0]
+    n = n0 if mids is None or mids.ndim != 4 else mids.shape[2]
     b, d = idx.shape
     if (
-        last.shape != (r, n)
+        last.shape != (r, nl)
         or (mids is not None and mids.shape != (d_mid, r, n, r))
         or d != d_mid + 2
     ):
         raise ValueError(
-            "shape mismatch: need first (n, r), mids (d-2, r, n, r), "
-            "last (r, n) and idx (B, d)"
+            "shape mismatch: need first (n0, r), mids (d-2, r, n, r), "
+            "last (r, nl) and idx (B, d)"
         )
-    if r > MAX_RANK:
-        raise ValueError(f"ranks above {MAX_RANK} are not supported")
-    return b, d, n, r
+    return b, d, n0, n, nl, r
 
 
 def tt_evaluate_cuda(
@@ -247,16 +258,18 @@ def tt_evaluate_cuda(
 ) -> torch.Tensor:
     """Values of the train at ``idx`` through the H2 kernel; (B,).
 
-    Takes contiguous float32 or float64 CUDA cores on one device --
-    first (n, r), mids (d-2, r, n, r) or None, last (r, n), r <= 512 --
-    and a contiguous int32 (B, d) index matrix on the same device whose
-    entries lie in [0, n) (the kernel also clamps, as a memory guard).
+    Takes contiguous CUDA cores of one dtype (float32, float64, bfloat16
+    or float16) on one device -- first (n0, r), mids (d-2, r, n, r) or
+    None, last (r, nl), any r -- and a contiguous int32 (B, d) index
+    matrix on the same device whose columns lie in [0, n0), [0, n) and
+    [0, nl) (the kernel also clamps, as a memory guard).  Returns the
+    values in the cores' dtype.
     ``tables`` are :func:`build_group_tables` of this ``idx`` (built
     here when not given; a caller that evaluates several trains at the
     same points builds them once).  Raises on anything else.  Counts one
     launch per call in ``tt_evaluate_cuda.launches``.
     """
-    b, d, n, r = _check_eval_args(first, mids, last, idx)
+    b, d, n0, n, nl, r = _check_eval_args(first, mids, last, idx)
     dev, dtype = first.device, first.dtype
     out = torch.empty(b, device=dev, dtype=dtype)
     if b == 0:
@@ -283,14 +296,10 @@ def tt_evaluate_cuda(
         max_tiles, tile_p = 0, TILE_P
 
     lib = _build.cuda_library()
-    fn = (
-        lib.tnt_evaluate_grouped_f32
-        if dtype == torch.float32
-        else lib.tnt_evaluate_grouped_f64
-    )
+    fn = getattr(lib, f"tnt_evaluate_grouped_{DTYPE_SUFFIX[dtype]}")
     with torch.cuda.device(dev):
         # the carries of even and odd steps, in point order
-        carry = torch.empty((2, b, r), device=dev, dtype=dtype)
+        carry = torch.empty((2, b, r), device=dev, dtype=acc_dtype(dtype))
         rc = fn(
             first.data_ptr(),
             mids.data_ptr() if mids is not None else None,
@@ -303,7 +312,9 @@ def tt_evaluate_cuda(
             out.data_ptr(),
             b,
             d,
+            n0,
             n,
+            nl,
             r,
             max_tiles,
             tile_p,
@@ -322,9 +333,16 @@ def tt_evaluate_per_point_cuda(first, mids, last, idx) -> torch.Tensor:
     replaced (one warp per point, each reading its own slice); takes
     what :func:`tt_evaluate_cuda` takes.  It is the yardstick that
     ``chip_smoke.py`` and the card tests time and check the grouped
-    kernel against; :func:`tt_evaluate` never routes to it."""
-    b, d, n, r = _check_eval_args(first, mids, last, idx)
+    kernel against; :func:`tt_evaluate` never routes to it.  Unlike the
+    grouped kernel it needs float32 or float64 cores, one mode size
+    n0 = n = nl and r <= 512 (its registers per lane)."""
+    b, d, n0, n, nl, r = _check_eval_args(first, mids, last, idx)
     dev, dtype = first.device, first.dtype
+    if dtype not in (torch.float32, torch.float64) or not n0 == n == nl:
+        raise ValueError(
+            "the per-point kernel needs float32 or float64 cores of one "
+            "mode size"
+        )
     out = torch.empty(b, device=dev, dtype=dtype)
     if b == 0:
         return out
@@ -356,8 +374,8 @@ def tt_evaluate(first, mids, last, idx, precision: str = "highest"):
     for CUDA tensors, the plain version for CPU tensors.
 
     ``precision`` takes the JAX API's values ("highest", "bf16x3",
-    "default"); every mode computes in full-precision FMA here, which
-    meets each mode's accuracy contract.
+    "default"); every mode computes in full-precision FMA here (float32
+    for 2-byte cores), which meets each mode's accuracy contract.
     """
     _check_precision(precision)
     if first.is_cuda:

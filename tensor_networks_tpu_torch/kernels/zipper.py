@@ -22,6 +22,12 @@ What bounds it on the H100: at d=50, n=32, r=100 one inner product is
 67 TFLOP/s against ~37 us at 3.35 TB/s.  Both routes use plain FMA, no
 tensor cores.
 
+Cores may be float32, float64, bfloat16 or float16, at any rank.  The
+kernels convert 2-byte cores to float32 as they load them, keep the
+carry W and every product in float32, and return the result in the
+cores' dtype, as the JAX package does; the wrappers allocate the
+float32 scratch.
+
 Routing: :func:`tt_inner` sends CUDA tensors to the kernels (which raise
 on what they cannot take) and CPU tensors to :func:`tt_inner_plain`.
 There is no fallback from a kernel to the plain version, nor from the
@@ -39,7 +45,13 @@ import torch
 from tensor_networks_tpu_torch.kernels import _build
 
 PRECISIONS = ("highest", "bf16x3", "default")
-MAX_RANK = 512
+#: the suffix of each core dtype's C entry points
+DTYPE_SUFFIX = {
+    torch.float32: "f32",
+    torch.float64: "f64",
+    torch.bfloat16: "bf16",
+    torch.float16: "f16",
+}
 #: ranks up to this take the fused route; its shared memory (A slice, U,
 #: two rings) fits one block at this rank in float64 too
 FUSED_MAX_RANK = 128
@@ -71,6 +83,21 @@ def tt_inner_plain(fa, ma, la, fb, mb, lb) -> torch.Tensor:
             # w2[a2, b2] = sum_{b1, n} t[(b1 n), a2] b[(b1 n), b2]
             w = t.T @ b.reshape(rb * n, rb2)
     return torch.sum(w * (la @ lb.T))
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the kernels compute in for cores of ``dtype``: float32
+    for the 2-byte types, the dtype itself otherwise."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _check_dtype(dtype: torch.dtype) -> str:
+    if dtype not in DTYPE_SUFFIX:
+        raise ValueError(
+            "dtype must be float32, float64, bfloat16 or float16, "
+            f"got {dtype}"
+        )
+    return DTYPE_SUFFIX[dtype]
 
 
 def _check_precision(precision: str) -> None:
@@ -126,6 +153,8 @@ def band_plan(ra: int, rb: int, n: int, dtype: torch.dtype, sms: int) -> BandPla
     all of W and B_i).  Whole units per band, so no band is empty.  At
     the main shape that is 4 bands, one block per SM; 8 bands (two
     blocks per SM) measured slower on the H100 (``PERF.md``).
+    ``dtype`` is the one the step computes and stages in
+    (:func:`acc_dtype`): 2-byte cores take float32's bands.
     """
     item = torch.empty((), dtype=dtype).element_size()
     cols = _STEP_NJ * (16 // item)
@@ -173,8 +202,7 @@ def _check_cores(fa, ma, la, fb, mb, lb, who: str):
             raise ValueError("all cores must share one CUDA device and dtype")
         if not x.is_contiguous():
             raise ValueError("cores must be contiguous")
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    _check_dtype(dtype)
     if (ma is None) != (mb is None):
         raise ValueError("both trains need middle cores, or neither")
     n0, ra = fa.shape
@@ -195,8 +223,6 @@ def _check_cores(fa, ma, la, fb, mb, lb, who: str):
             "shape mismatch: need fa (n0, ra), ma (d-2, ra, n, ra), "
             "la (ra, nl) and the same for b with rb"
         )
-    if max(ra, rb) > MAX_RANK:
-        raise ValueError(f"ranks above {MAX_RANK} are not supported")
     return n0, n, nl, ra, rb, d_mid
 
 
@@ -207,14 +233,15 @@ def _ptr(x: Optional[torch.Tensor]):
 def _chain(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
     """The chain: returns (the 0-d result, its device launches)."""
     dev, dtype = fa.device, fa.dtype
+    acc = acc_dtype(dtype)
     lib = _build.cuda_library()
     splits = _splits(_sm_count(dev.index), ra, rb, rb * n) if d_mid else 1
     with torch.cuda.device(dev):
-        w = torch.empty(ra * rb, device=dev, dtype=dtype)
-        t = torch.empty(max(rb * n * ra, 1), device=dev, dtype=dtype)
-        part = torch.empty(splits * ra * rb, device=dev, dtype=dtype)
+        w = torch.empty(ra * rb, device=dev, dtype=acc)
+        t = torch.empty(max(rb * n * ra, 1), device=dev, dtype=acc)
+        part = torch.empty(splits * ra * rb, device=dev, dtype=acc)
         out = torch.empty((), device=dev, dtype=dtype)
-        fn = lib.tnt_zipper_f32 if dtype == torch.float32 else lib.tnt_zipper_f64
+        fn = getattr(lib, f"tnt_zipper_{DTYPE_SUFFIX[dtype]}")
         rc = fn(
             _ptr(fa), _ptr(ma), _ptr(la), _ptr(fb), _ptr(mb), _ptr(lb),
             w.data_ptr(), t.data_ptr(), part.data_ptr(), out.data_ptr(),
@@ -232,14 +259,14 @@ def _chain(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
 def _fused(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
     """The fused route: returns (the 0-d result, its device launches)."""
     dev, dtype = fa.device, fa.dtype
+    acc = acc_dtype(dtype)
     lib = _build.cuda_library()
-    plan = band_plan(ra, rb, n, dtype, _sm_count(dev.index)) if d_mid else None
+    plan = band_plan(ra, rb, n, acc, _sm_count(dev.index)) if d_mid else None
     with torch.cuda.device(dev):
-        w = torch.empty(ra * rb, device=dev, dtype=dtype)
-        part = torch.empty(n * ra * rb if d_mid else 1, device=dev, dtype=dtype)
+        w = torch.empty(ra * rb, device=dev, dtype=acc)
+        part = torch.empty(n * ra * rb if d_mid else 1, device=dev, dtype=acc)
         out = torch.empty((), device=dev, dtype=dtype)
-        fn = (lib.tnt_zipper_fused_f32 if dtype == torch.float32
-              else lib.tnt_zipper_fused_f64)
+        fn = getattr(lib, f"tnt_zipper_fused_{DTYPE_SUFFIX[dtype]}")
         rc = fn(
             _ptr(fa), _ptr(ma), _ptr(la), _ptr(fb), _ptr(mb), _ptr(lb),
             w.data_ptr(), part.data_ptr(), out.data_ptr(),
@@ -262,9 +289,11 @@ def tt_inner_cuda(
 ) -> torch.Tensor:
     """<a, b> through the H1 kernels; returns a 0-d tensor.
 
-    Takes contiguous float32 or float64 CUDA tensors on one device:
-    fa (n0, r_a), ma (d-2, r_a, n, r_a) or None, la (r_a, nl), and the
-    same for b with its own rank r_b <= 512.  Raises on anything else.
+    Takes contiguous float32, float64, bfloat16 or float16 CUDA tensors
+    of one dtype on one device: fa (n0, r_a), ma (d-2, r_a, n, r_a) or
+    None, la (r_a, nl), and the same for b with its own rank r_b; any
+    ranks.  Returns the result in the cores' dtype (2-byte cores are
+    summed in float32).  Raises on anything else.
     Ranks up to :data:`FUSED_MAX_RANK` take the fused route, larger ones
     the chain.  Counts one call in ``tt_inner_cuda.launches``, the fused
     ones also in ``tt_inner_cuda.fused`` (the chain's in
@@ -285,7 +314,7 @@ tt_inner_cuda.last_device_launches = 0
 
 
 def tt_inner_chain_cuda(fa, ma, la, fb, mb, lb) -> torch.Tensor:
-    """<a, b> through the chain at any rank up to 512: the route that
+    """<a, b> through the chain at any rank: the route that
     :func:`tt_inner_cuda` takes above :data:`FUSED_MAX_RANK`, callable
     at every rank as the fused route's yardstick.  Same contract as
     :func:`tt_inner_cuda`; counts its calls in ``.launches`` and keeps the
@@ -305,9 +334,9 @@ def tt_inner(fa, ma, la, fb, mb, lb, precision: str = "highest"):
     plain zipper for CPU tensors.
 
     ``precision`` takes the JAX API's values ("highest", "bf16x3",
-    "default"); every mode computes in full-precision FMA here, which
-    meets each mode's accuracy contract (bf16x3 ~1e-6 relative, default
-    bf16-level).
+    "default"); every mode computes in full-precision FMA here (float32
+    for 2-byte cores), which meets each mode's accuracy contract
+    (bf16x3 ~1e-6 relative, default bf16-level).
     """
     _check_precision(precision)
     if fa.is_cuda:

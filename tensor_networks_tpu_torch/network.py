@@ -358,7 +358,10 @@ class TensorNetwork:
                 if ragged is not None
                 else self._evaluate_chunk(indices, chunk)
             )
-            out[start : start + batch] = got.detach().cpu().numpy()[:batch]
+            # numpy has no bfloat16: the values reach it as float64
+            out[start : start + batch] = (
+                got.detach().cpu().double().numpy()[:batch]
+            )
             start += batch
         return out
 

@@ -7,7 +7,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: 1e-4 (f32) / 1e-10 (f64) of the problem's scale, as in
-``chip_smoke.py``; sums run in another order than cuBLAS's.
+``chip_smoke.py``; sums run in another order than cuBLAS's.  Cores
+stored in bfloat16 or float16 are summed in float32 and the result is
+rounded to the cores' dtype, so they are held to 8e-3 (bf16, 8 bits of
+mantissa) and 1e-3 (f16, 11 bits) of the scale, against the f64 plain
+result on the same (rounded) cores.
 """
 
 import math
@@ -22,7 +26,8 @@ from tensor_networks_tpu_torch.kernels import zipper as tzp
 from tensor_networks_tpu_torch.ops import packed as tpk
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+TOL = {torch.float32: 1e-4, torch.float64: 1e-10, torch.bfloat16: 8e-3,
+       torch.float16: 1e-3}
 
 
 @pytest.fixture
@@ -226,12 +231,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tzp.tt_inner_cuda(f, m.transpose(1, 3), l, f, m, l)
     with pytest.raises(ValueError, match="dtype"):
-        tzp.tt_inner_cuda(f.half(), m.half(), l.half(), f.half(), m.half(), l.half())
+        tzp.tt_inner_cuda(f.int(), m.int(), l.int(), f.int(), m.int(), l.int())
+    with pytest.raises(ValueError, match="dtype"):
+        tev.tt_evaluate_cuda(f.int(), m.int(), l.int(), idx)
     with pytest.raises(ValueError, match="device and dtype"):
         tzp.tt_inner_cuda(f, m, l, f.cpu(), m, l)
-    big = torch.zeros((3, 513), device=dev)
-    with pytest.raises(ValueError, match="512"):
-        tzp.tt_inner_cuda(big, None, big.T.contiguous(), big, None, big.T.contiguous())
+    with pytest.raises(ValueError, match="shape"):  # la (r_a, nl) of another r
+        tzp.tt_inner_cuda(f, m, l[:4].contiguous(), f, m, l)
+    with pytest.raises(ValueError, match="one mode size"):  # the yardstick
+        tev.tt_evaluate_per_point_cuda(f[:2].contiguous(), m, l, idx)
     with pytest.raises(ValueError, match="int32"):
         tev.tt_evaluate_cuda(f, m, l, idx.long())
     with pytest.raises(ValueError, match="shape"):
@@ -239,3 +247,119 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     other = tev.build_group_tables(idx[:3].contiguous(), 3)
     with pytest.raises(ValueError, match="grouping tables"):
         tev.tt_evaluate_cuda(f, m, l, idx, other)
+
+
+def _net(g, inds, r, dtype, mid_scale, end_scale=1.0):
+    """A random train on the card, its cores scaled, stored as dtype."""
+    net = TensorNetwork.rand_tt(inds, [r] * (len(inds) - 1), generator=g)
+    for k in range(len(inds)):
+        t = net.node_tensor(k)
+        s = mid_scale if 0 < k < len(inds) - 1 else end_scale
+        t.update_val_size((t.value * s).to(dtype))
+    return net
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r", [513, 1024])
+def test_ranks_above_512_through_the_entry_points(dev, dtype, r):
+    """Ranks past the old 512 limit: the inner product takes the chain,
+    evaluation the grouped kernel, through every entry point."""
+    g = torch.Generator(device=dev).manual_seed(r)
+    inds = [Index(f"x{k}", 8) for k in range(6)]
+    a = _net(g, inds, r, dtype, 1 / math.sqrt(8 * r))
+    b = _net(g, inds, r, dtype, 1 / math.sqrt(8 * r))
+    pa, pb = tpk.pack(a), tpk.pack(b)
+    a64, b64 = _f64(list(pa)), _f64(list(pb))
+    na = math.sqrt(tzp.tt_inner_plain(*a64, *a64).item())
+    nb = math.sqrt(tzp.tt_inner_plain(*b64, *b64).item())
+    ref = tzp.tt_inner_plain(*a64, *b64).item()
+    chain = tzp.tt_inner_chain_cuda.launches
+    for got in (tpk.inner(pa, pb), tt_inner_fast(a, b)):
+        assert got.dtype == dtype
+        assert abs(got.item() - ref) <= TOL[dtype] * na * nb
+    assert tzp.tt_inner_chain_cuda.launches == chain + 2
+    assert abs(tpk.norm(pa).item() - na) <= TOL[dtype] * na
+    assert torch.equal(tpk.inner(pa, pb), tpk.inner(pa, pb))
+
+    # evaluation: mids scaled to keep point values O(1)
+    e = _net(g, inds, r, dtype, 1 / math.sqrt(r))
+    pe = tpk.pack(e)
+    pts = torch.randint(0, 8, (300, 6), generator=g, device=dev)
+    want = tev.tt_evaluate_plain(*_f64(list(pe)), pts)
+    scale = want.abs().max().item()
+    before = tev.tt_evaluate_cuda.launches
+    got = tpk.evaluate(pe, pts)
+    assert got.dtype == dtype
+    assert (got.double() - want).abs().max().item() <= TOL[dtype] * scale
+    assert torch.equal(got, tpk.evaluate(pe, pts))
+    assert tev.tt_evaluate_cuda.launches == before + 2
+    # the network's chain route packs rank r into the next power of two
+    vals = e.evaluate(inds, pts.cpu().numpy())
+    assert tev.tt_evaluate_cuda.launches > before + 2
+    assert np.abs(vals - want.cpu().numpy()).max() <= TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n0,n,nl", [(3, 8, 5), (32, 8, 1)])
+def test_evaluate_takes_unequal_end_modes(dev, dtype, n0, n, nl):
+    g = torch.Generator().manual_seed(n0 + nl)
+    first, mids, last = _train(g, 6, n, 40, dtype, dev, n0=n0, nl=nl)
+    mids = mids * math.sqrt(n)  # point values O(1)
+    pk = tpk.PackedTT(first, mids, last)
+    pts = torch.stack(
+        [torch.randint(0, m, (500,), generator=g) for m in [n0] + [n] * 4 + [nl]],
+        dim=1,
+    ).to(dev)
+    want = tev.tt_evaluate_plain(*_f64([first, mids, last]), pts)
+    before = tev.tt_evaluate_cuda.launches
+    got = tpk.evaluate(pk, pts)
+    assert tev.tt_evaluate_cuda.launches == before + 1
+    assert (got.double() - want).abs().max() <= TOL[dtype] * want.abs().max()
+    assert torch.equal(got, tpk.evaluate(pk, pts))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("r", [37, 100, 129])
+def test_half_trains_through_the_entry_points(dev, dtype, r):
+    """bf16 and f16 cores run through the kernels' own 2-byte
+    instantiations (r = 37: rows not 4-byte aligned; r = 129: the
+    chain) and come back in their dtype."""
+    g = torch.Generator(device=dev).manual_seed(r)
+    inds = [Index(f"x{k}", 32) for k in range(6)]
+    # |a| ~ 1: with mids scaled 1/sqrt(n r), |a|^2 ~ n^2 r |ends|^2, and
+    # f16 holds nothing above 65504
+    ends = (32 * 32 * r) ** -0.25
+    a = _net(g, inds, r, dtype, 1 / math.sqrt(32 * r), ends)
+    b = _net(g, inds, r, dtype, 1 / math.sqrt(32 * r), ends)
+    pa, pb = tpk.pack(a), tpk.pack(b)
+    assert pa.first.dtype == dtype
+    a64, b64 = _f64(list(pa)), _f64(list(pb))
+    na = math.sqrt(tzp.tt_inner_plain(*a64, *a64).item())
+    nb = math.sqrt(tzp.tt_inner_plain(*b64, *b64).item())
+    fused = tzp.tt_inner_cuda.fused
+    for x, y, x64, y64, scale in ((pa, pb, a64, b64, na * nb), (pa, pa, a64, a64, na * na)):
+        ref = tzp.tt_inner_plain(*x64, *y64).item()
+        got = tpk.inner(x, y)
+        assert got.dtype == dtype
+        assert abs(got.item() - ref) <= TOL[dtype] * scale
+        assert torch.equal(got, tpk.inner(x, y))
+        chain = tzp.tt_inner_chain_cuda(*x, *y)
+        assert chain.dtype == dtype
+        assert abs(chain.item() - ref) <= TOL[dtype] * scale
+    assert tzp.tt_inner_cuda.fused == fused + (4 if r <= tzp.FUSED_MAX_RANK else 0)
+    assert abs(tpk.norm(pa).item() - na) <= TOL[dtype] * na
+    fast = tt_inner_fast(a, b)
+    assert fast.dtype == dtype
+    assert abs(fast.item() - tzp.tt_inner_plain(*a64, *b64).item()) <= TOL[dtype] * na * nb
+
+    e = _net(g, inds, r, dtype, 1 / math.sqrt(r))
+    pe = tpk.pack(e)
+    pts = torch.randint(0, 32, (1000, 6), generator=g, device=dev)
+    want = tev.tt_evaluate_plain(*_f64(list(pe)), pts)
+    scale = want.abs().max().item()
+    got = tpk.evaluate(pe, pts)
+    assert got.dtype == dtype
+    assert (got.double() - want).abs().max().item() <= TOL[dtype] * scale
+    assert torch.equal(got, tpk.evaluate(pe, pts))
+    vals = e.evaluate(inds, pts.cpu().numpy())
+    assert np.abs(vals - want.cpu().numpy()).max() <= TOL[dtype] * scale
