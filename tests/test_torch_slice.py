@@ -95,8 +95,10 @@ def test_round_fixed_truncates_ragged_chains_like_jax(nets):
     tp, tpr = ttn.tt_round_fixed(tr, 1e-10)
     assert tpr == jpr
     assert _rel(tp.contract().value, jp.contract().value) <= 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttn.tt_round_fixed(ta, 1e-3, method="gram")
+    jg, jgr = jfast.tt_round_fixed(ja, 1e-3, method="gram")
+    tg, tgr = ttn.tt_round_fixed(ta, 1e-3, method="gram")
+    assert tgr == jgr
+    assert _rel(tg.contract().value, jg.contract().value) <= 1e-10
 
 
 def test_evaluate_matches_jax(nets):
