@@ -456,7 +456,7 @@ def phase_main_path(zp, ev, dev):
         + f"; wall s: pack+inner+norm+fast {t1 - t0:.4f}, round(a+a) {t2 - t1:.4f}, "
         f"3 evaluates {t3 - t2:.4f}"
     )
-    return dict(launches, chain=launches_chain), pa, idx
+    return dict(launches, chain=launches_chain), pa, idx, (a, inds, idx_np, ev_ref)
 
 
 def stack(p):
@@ -694,6 +694,181 @@ def phase_half_timings(zp, ev, dev):
     return out
 
 
+ROUND_METHODS = ("svd", "gram", "cholqr2", "twosided", "prefix")
+
+
+def _device_profile(fn):
+    """One call of ``fn`` under torch.profiler: the device-busy ms (the
+    union of its kernels' and copies' intervals), the kernel count, and
+    the three kernels with the most device time [(name, ms, launches)]."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"], e.get("cat"))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for s0, s1, _, _ in spans:
+        if end is None or s0 >= end:
+            busy += s1 - s0
+            end = s1
+        elif s1 > end:
+            busy += s1 - end
+            end = s1
+    per_kernel = {}
+    for s0, s1, name, cat in spans:
+        if cat == "kernel":
+            us, count = per_kernel.get(name, (0.0, 0))
+            per_kernel[name] = (us + s1 - s0, count + 1)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:3]
+    kernels = sum(c for _, c in per_kernel.values())
+    return busy / 1e3, kernels, [(name[:60], us / 1e3, c) for name, (us, c) in top]
+
+
+def _host_syncs(fn):
+    """How many times one call of ``fn`` makes the host wait for the card
+    (``torch.cuda.set_sync_debug_mode``); returns (syncs, fn's result)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in rec), out
+
+
+def _svd_drivers(a, dev):
+    """torch.linalg.svd with each cuSOLVER driver on the svd sweep's
+    R factors: (100, 100) from a middle core of ``a``, (200, 200) from one
+    of ``a + a`` (rank 100, as the sweep's factors of a doubled train)."""
+    core = a.value(D // 2)
+    mats = {100: torch.linalg.qr(core.reshape(R * N, R))[1]}
+    core2 = torch.cat([core, core], dim=2)
+    mats[200] = torch.linalg.qr(torch.cat([core2, core2], dim=0).reshape(2 * R * N, 2 * R))[1]
+    out = {}
+    for size, m in mats.items():
+        ref = torch.linalg.svdvals(m.double())
+        for driver in (None, "gesvd", "gesvdj", "gesvda"):
+            fn = lambda: torch.linalg.svd(m, full_matrices=False, driver=driver)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            runs = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            err = (fn()[1].double() - ref).abs().max().item() / ref[0].item()
+            out[f"{size} {driver or 'default'}"] = (float(np.median(runs)), err)
+    print("  svd drivers on the sweep's R factors (f32, median of 7 calls, ms; "
+          "max |s - s_f64| / s_max): "
+          + "; ".join(f"({k.split()[0]}, {k.split()[0]}) {k.split()[1]} {ms:.4f} ({err:.1e})"
+                      for k, (ms, err) in out.items()))
+    return out
+
+
+def phase_rounding(a, inds, idx_np, ev_ref, dev):
+    """Every tt_round_fixed method at full width: ``a + a`` of the main
+    path's train (d=50, n=32, r=100, f32) at eps = 1e-3.  Each must keep
+    the structural ranks [32, 100 x 47, 32] and hold the rounded train to
+    2a at the main path's 8192 points within 5e-3 max|ref| (an f64 plain
+    evaluation of a).  Reports the wall time (median of 5 calls after 2
+    warm-ups, synchronised), one call's device-busy time, kernel count and
+    largest kernels (torch.profiler), and the host syncs of one call.
+    Then, at d=12 in f64, each method for correctness only: the same
+    structural ranks and 1e-8 of max|2a| at the points.  Floor warnings
+    (the Gram methods' at eps = 1e-3 in f32) are printed, not fatal."""
+    import warnings
+
+    from tensor_networks_tpu_torch import TensorNetwork, packed, tt_round_fixed
+    from tensor_networks_tpu_torch.kernels import evaluate as ev
+    from tensor_networks_tpu_torch.ops import fast
+
+    s = a + a
+    want = [N] + [R] * (D - 3) + [N]
+    scale = 2 * np.abs(ev_ref).max()
+    rows = {}
+    print(f"phase 4 rounding a + a, d={D} n={N} r={R} f32, eps 1e-3, "
+          f"{len(idx_np)} points:")
+    for method in ROUND_METHODS:
+        call = lambda: tt_round_fixed(s, 1e-3, method=method)  # noqa: E731
+        fallbacks = fast.ROUND_STATS["fallback_nan"]
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            for _ in range(2):
+                rounded, ranks = call()
+        fallbacks = fast.ROUND_STATS["fallback_nan"] - fallbacks
+        for w in {str(w.message) for w in rec}:
+            print(f"  {method} warns: {w}")
+        if ranks != want:
+            raise AssertionError(f"{method} kept ranks {ranks}, want {want}")
+        err = np.abs(rounded.evaluate(inds, idx_np) - 2 * ev_ref).max() / scale
+        if not err <= 5e-3:
+            raise AssertionError(f"{method}: max err / max|2a| = {err:.3e} > 5e-3")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            busy, kernels, top = _device_profile(call)
+            syncs, _ = _host_syncs(call)
+        rows[method] = {"wall_ms": 1e3 * float(np.median(runs)), "busy_ms": busy,
+                        "kernels": kernels, "syncs": syncs, "err": float(err),
+                        "fallbacks": fallbacks, "top": top}
+        print(f"  {method}: ranks ok, err {err:.3e} of max|2a|, wall "
+              f"{rows[method]['wall_ms']:.3f} ms (median of 5; runs "
+              + ",".join(f"{1e3 * x:.3f}" for x in runs)
+              + f"), device busy {busy:.3f} ms over {kernels} kernels, "
+              f"{syncs} host syncs, {fallbacks} of 2 warm-ups fell back to svd; largest: "
+              + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top))
+    rows["svd_drivers"] = _svd_drivers(a, dev)
+
+    # d=12, f64: correctness only
+    from tensor_networks_tpu_torch import Index
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    d12 = 12
+    inds12 = [Index(f"y{k}", N) for k in range(d12)]
+    t12 = TensorNetwork.rand_tt(inds12, [R] * (d12 - 1), dtype=torch.float64, generator=g)
+    for k in range(1, d12 - 1):
+        t12.node_tensor(k).update_val_size(t12.value(k) / math.sqrt(N * R))
+    pts = torch.randint(0, N, (B, d12), generator=g, device=dev)
+    ref12 = 2 * ev.tt_evaluate_plain(*stack(packed.pack(t12)), pts).cpu().numpy()
+    pts = pts.cpu().numpy()
+    want12 = [N] + [R] * (d12 - 3) + [N]
+    errs = {}
+    for method in ROUND_METHODS:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            rounded, ranks = tt_round_fixed(t12 + t12, 1e-9, method=method)
+        for w in {str(w.message) for w in rec}:
+            print(f"  {method} warns (d=12 f64): {w}")
+        if ranks != want12:
+            raise AssertionError(f"{method} d=12 f64 kept ranks {ranks}, want {want12}")
+        errs[method] = np.abs(rounded.evaluate(inds12, pts) - ref12).max() / np.abs(ref12).max()
+        if not errs[method] <= 1e-8:
+            raise AssertionError(f"{method} d=12 f64: max err / max|2a| = {errs[method]:.3e}")
+    print(f"  d={d12} f64 a + a at eps 1e-9: ranks ok for every method, max err / "
+          "max|2a| " + ", ".join(f"{m} {e:.2e}" for m, e in errs.items()))
+    print(json.dumps({"rounding": rows}))
+    return rows
+
+
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
@@ -729,7 +904,7 @@ def main() -> int:
 
     phase_default_device()
     phase_kernels_vs_plain(zp, ev, dev)
-    launches, pa, idx = phase_main_path(zp, ev, dev)
+    launches, pa, idx, main_train = phase_main_path(zp, ev, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     pb = tnt.packed.PackedTT(*_train(g, D, N, R, 1 / math.sqrt(N * R)))
     times = phase_timings(zp, ev, pa, pb, idx, launches)
@@ -738,6 +913,7 @@ def main() -> int:
     half = phase_half_timings(zp, ev, dev)
     for name in ("inner", "chain", "evaluate"):
         times[name]["by_dtype"] = {k: v[name] for k, v in half.items()}
+    phase_rounding(*main_train, dev)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

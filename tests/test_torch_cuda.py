@@ -363,3 +363,29 @@ def test_half_trains_through_the_entry_points(dev, dtype, r):
     assert torch.equal(got, tpk.evaluate(pe, pts))
     vals = e.evaluate(inds, pts.cpu().numpy())
     assert np.abs(vals - want.cpu().numpy()).max() <= TOL[dtype] * scale
+
+
+def _on(net, device):
+    return TensorNetwork.from_separated_dict(*net.to_separated_dict(), device=device)
+
+
+@pytest.mark.parametrize("method", ["svd", "gram", "cholqr2", "twosided", "prefix"])
+def test_round_methods_on_the_card_match_the_cpu(dev, method):
+    """Every ``tt_round_fixed`` sweep on CUDA cores, in f64: the port's
+    CPU result's ranks, and its represented tensor within 1e-10, on a
+    doubled train (1e-8) and on a + 1e-6 b (1e-3)."""
+    from tensor_networks_tpu_torch.ops import fast as tfast
+
+    g = torch.Generator().manual_seed(7)
+    inds = [Index(f"x{k}", 5) for k in range(7)]
+    a = TensorNetwork.rand_tt(inds, [4] * 6, device="cpu", generator=g)
+    b = TensorNetwork.rand_tt(inds, [4] * 6, device="cpu", generator=g)
+    b.scale(1e-6)
+    for net, eps, want in ((a + a, 1e-8, [4] * 6), (a + b, 1e-3, [4] * 6)):
+        cpu, cpu_ranks = tfast.tt_round_fixed(net, eps, method=method)
+        card, card_ranks = tfast.tt_round_fixed(_on(net, dev), eps, method=method)
+        assert card_ranks == cpu_ranks == want
+        x = card.contract().value.cpu()
+        y = cpu.contract().value
+        assert x.dtype == torch.float64
+        assert ((x - y).norm() / y.norm()).item() <= 1e-10
