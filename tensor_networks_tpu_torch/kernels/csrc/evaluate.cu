@@ -73,8 +73,12 @@ constexpr size_t step_smem_bytes() {
 // One step for one tile: dst[pt, c0:c0+TILE_N] = src_row(pt) . S[:, c0:...]
 // for the tile's points pt = perm[start : start + count].
 //
-// src_row(pt) is first[idx[pt, 0], :] (first is (n0, r)) when
-// from_first, else src[pt, :].  core is mids[k], (r, n, r); tiles holds
+// src_row(pt) is first[idx[pt, 0], :] when first_rows > 0 (first is
+// (first_rows, r), the step reads from it), else src[pt, :] (a carry).
+// n0 rides in first_rows rather than in a parameter of its own: with one
+// more int parameter ptxas gave the f32 instantiation 128 registers
+// instead of 142, and the step took 17.4 us instead of 14.4 on the H100
+// (PERF.md).  core is mids[k], (r, n, r); tiles holds
 // (step, mode, start, count) per tile of this step, count == 0 past the
 // step's last tile.  vec says that r is a multiple of a Pack of T and
 // every pointer is 16-byte aligned.  The K-slabs of V and S go through a
@@ -85,9 +89,9 @@ constexpr size_t step_smem_bytes() {
 template <typename T, int TM, int TN, int TY, typename TS, typename S>
 __global__ void __launch_bounds__(TX * TY)
 grouped_step(const TS* __restrict__ src, const int* __restrict__ idx,
-             int from_first, const S* __restrict__ core,
+             int first_rows, const S* __restrict__ core,
              const int* __restrict__ perm, const int4* __restrict__ tiles,
-             T* __restrict__ dst, int B, int d, int n0, int n, int r, int vec) {
+             T* __restrict__ dst, int B, int d, int n, int r, int vec) {
     constexpr int PK = 16 / sizeof(T);
     constexpr int TILE_P = TY * TM;
     constexpr int TILE_N = TX * TN;
@@ -174,7 +178,8 @@ grouped_step(const TS* __restrict__ src, const int* __restrict__ idx,
         int pt = -1, row = -1;
         if (p < count) {
             pt = tnt::clamp_index(perm[start + p], B);
-            row = from_first ? tnt::clamp_index(idx[(size_t)pt * d], n0) : pt;
+            row = first_rows ? tnt::clamp_index(idx[(size_t)pt * d], first_rows)
+                             : pt;
         }
         dst_row[p] = pt;
         src_row[p] = row;
@@ -352,12 +357,12 @@ int evaluate_grouped(const S* first, const S* mids, const S* last,
         // the stream may be the one that writes the grouping tables
         const int rc =
             k == 0 ? tnt::launch_after(first_step, grid, TX * TY, smem, stream,
-                                       false, first, idx, 1, mids, perm_k,
-                                       tiles_k, dst, B, d, n0, n, r, vec)
+                                       false, first, idx, n0, mids, perm_k,
+                                       tiles_k, dst, B, d, n, r, vec)
                    : tnt::launch_after(next_step, grid, TX * TY, smem, stream,
                                        true, (const T*)bufs[(k - 1) & 1], idx,
                                        0, mids + k * core_sz, perm_k, tiles_k,
-                                       dst, B, d, n0, n, r, vec);
+                                       dst, B, d, n, r, vec);
         if (rc) return rc;
     }
     const dim3 fgrid(cdiv(B, FINISH_WARPS));

@@ -333,14 +333,25 @@ def _chol_adaptive(g, jit0, escalate: bool, fails: list):
     return l, jit0 * mult
 
 
-def _sign_newton_schulz(a0, alpha, max_iters: int, check_every: int = 8):
+#: iterations of the Newton-Schulz sign iteration between two host reads
+#: of its error
+_SIGN_CHECK_EVERY = 8
+#: the sign iteration's cap, as in the JAX package: thresholds below
+#: ~1.5**-100 of the spectral radius do not resolve; the prefix sweep's
+#: trust projector tolerates ~1e-2 leakage and stops at 40
+_SIGN_ITERS = 100
+_TRUST_SIGN_ITERS = 40
+
+
+def _sign_newton_schulz(a0, alpha, max_iters: int):
     """Batched matrix sign of symmetric ``a0`` by Newton-Schulz (the JAX
     package's ``_sign_newton_schulz``): iterates until ``||x x - I||_max``
     falls under 50 machine eps or ``max_iters``.
 
-    The error is read on the host every ``check_every`` iterations, not
-    every one: once converged an iteration is a fixed point up to
-    roundoff, so the few extra ones change nothing but the last bits.
+    The error is read on the host every :data:`_SIGN_CHECK_EVERY`
+    iterations, not every one: once converged an iteration is a fixed
+    point up to roundoff, so the few extra ones change nothing but the
+    last bits.
     """
     eye = _eye(a0.shape[-1], a0)
     tol = 50.0 * torch.finfo(a0.dtype).eps
@@ -348,7 +359,7 @@ def _sign_newton_schulz(a0, alpha, max_iters: int, check_every: int = 8):
     for i in range(max_iters):
         x2 = x @ x
         x3 = x @ x2
-        check = (i + 1) % check_every == 0
+        check = (i + 1) % _SIGN_CHECK_EVERY == 0
         if check:
             err = torch.max(torch.abs(x2 - eye[None]))
         x = 1.5 * x - 0.5 * x3
@@ -410,9 +421,8 @@ def _proj_basis_cols(proj, masks, mach: float, escalate: bool, fails: list):
     defect = torch.amax(torch.abs(gq - tgt), dim=(-2, -1))
     bad = defect > 0.1
     jit2 = (_trace(gq) / r + _TINY) * (20.0 * mach)
-    rec_fails: list = []
-    l2, _ = _chol_adaptive(gq, jit2, escalate, rec_fails)
-    if rec_fails:  # only the entries that take the recovery count
+    l2, _ = _chol_adaptive(gq, jit2, escalate, [])
+    if not escalate:  # only the entries that take the recovery count
         fails.append((bad & ~torch.isfinite(l2).all(dim=-1).all(dim=-1)).any())
     q2 = _solve_right_lt(l2, q) * masks[:, None, :]
     q = torch.where(bad[:, None, None], q2, q)
@@ -597,7 +607,7 @@ def _kept_ranks(proj, bounds):
 
 
 def _tt_round_twosided_sweep(first, mids, last, eps, relative, bounds,
-                             escalate=False, sign_iters: int = 100):
+                             escalate=False):
     """Two-sided rounding with matmul-only spectral-projector truncation
     (the JAX package's ``_tt_round_twosided_sweep_fn``): CholeskyQR2
     right-orthogonalization, a forward CholeskyQR2 chain collecting every
@@ -643,7 +653,7 @@ def _tt_round_twosided_sweep(first, mids, last, eps, relative, bounds,
     budget2 = (eps_b**2 * norm2 if relative else eps_b**2) / (d - 1.0)
     tau2 = budget2 / r + j_all  # per direction, + the shift inflation
     eye = _eye(r, first)
-    proj = _sign_projectors(gram - tau2[:, None, None] * eye[None], sign_iters)
+    proj = _sign_projectors(gram - tau2[:, None, None] * eye[None], _SIGN_ITERS)
     ks, masks = _kept_ranks(proj, bounds)
     um = _proj_basis_cols(proj, masks, torch.finfo(dt).eps, escalate, fails)
 
@@ -665,8 +675,7 @@ def _power_lmax(mats, probe, steps: int = 3):
 
 
 def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
-                           escalate=False, sign_iters: int = 100,
-                           chain_precision: str = "high"):
+                           escalate=False, chain_precision: str = "high"):
     """Batched two-sided Gram rounding, the parallel-prefix mode (the JAX
     package's ``_tt_round_prefix_sweep_fn``).  The sequential chains
     carry only GEMMs; every factorization is batched over all bonds:
@@ -762,7 +771,7 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
         # explicit symmetrization: Newton-Schulz diverges for eigenvalues
         # pushed off the real axis by ulp-level asymmetry
         trust = _sign_projectors(sym(hg_all) - theta[:, None, None] * eye[None],
-                                 min(sign_iters, 40))
+                                 _TRUST_SIGN_ITERS)
         ep = torch.einsum("kab,kbc->kac", e_all, trust[:nb])
         pf = torch.einsum("kab,kcb->kac", trust[nb:], f_all)
         w_all = torch.einsum("kab,kbc->kac", ep, pf)
@@ -772,7 +781,7 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
         tau2 = tau2 + 2.0 * mach * _power_lmax(ww, probe)
 
     # ---- batched sign projectors and bases -------------------------------
-    proj = _sign_projectors(ww - tau2[:, None, None] * eye[None], sign_iters)
+    proj = _sign_projectors(ww - tau2[:, None, None] * eye[None], _SIGN_ITERS)
     ks, masks = _kept_ranks(proj, bounds)
     q_all = _proj_basis_cols(proj, masks, mach, escalate, fails)
 
