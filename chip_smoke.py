@@ -673,7 +673,10 @@ def phase_half_timings(zp, ev, dev):
     cores, trains scaled to O(1) (the main path's trains, with |a| ~ 1e12
     and point values ~ 1e-26, do not fit f16): kernel against the plain
     version on the same cores (turns P K K P), the bound with 2 bytes per
-    element, the error against the f64 plain result on those cores."""
+    element.  Each row is held to HALF_TOL against the f64 plain result
+    on the same cores, twice for the same bits: the inner rows on <a, a>
+    (of |a|^2; <a, b> of two independent trains is ~1e-38 and would
+    check nothing), the evaluation of max|ref|.  The times are of <a, b>."""
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     ends = (N * N * R) ** -0.25  # |a| ~ 1
     a64 = _train(g, D, N, R, 1 / math.sqrt(N * R), ends, dtype=torch.float64)
@@ -683,22 +686,30 @@ def phase_half_timings(zp, ev, dev):
     out = {}
     for dt, key in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
         a, b, e = ([x.to(dt) for x in t] for t in (a64, b64, e64))
-        na = math.sqrt(zp.tt_inner_plain(*_f64(*a), *_f64(*a)).item())
-        nb = math.sqrt(zp.tt_inner_plain(*_f64(*b), *_f64(*b)).item())
+        tol = HALF_TOL[dt]
+        aa = zp.tt_inner_plain(*_f64(*a), *_f64(*a)).item()
+        eref = ev.tt_evaluate_plain(*_f64(*e), idx)
+        emax = eref.abs().max().item()
         rows = {}
-        for name, k, p, ref, bound in (
+        for name, k, p, check, bound in (
                 ("inner", lambda: zp.tt_inner_cuda(*a, *b),
                  lambda: zp.tt_inner_plain(*a, *b),
-                 zp.tt_inner_plain(*_f64(*a), *_f64(*b)), _inner_bound(a, b)),
+                 lambda: _check_inner(zp, zp.tt_inner_cuda, a + a, aa, aa, tol,
+                                      f"inner {key} main shape") * tol * aa,
+                 _inner_bound(a, b)),
                 ("chain", lambda: zp.tt_inner_chain_cuda(*a, *b),
                  lambda: zp.tt_inner_plain(*a, *b),
-                 zp.tt_inner_plain(*_f64(*a), *_f64(*b)), _inner_bound(a, b)),
+                 lambda: _check_inner(zp, zp.tt_inner_chain_cuda, a + a, aa, aa, tol,
+                                      f"chain {key} main shape") * tol * aa,
+                 _inner_bound(a, b)),
                 ("evaluate", lambda: ev.tt_evaluate_cuda(*e, idx),
                  lambda: ev.tt_evaluate_plain(*e, idx),
-                 ev.tt_evaluate_plain(*_f64(*e), idx), _evaluate_bound(e, idx))):
+                 lambda: _check_eval(ev, e, idx, eref, tol,
+                                     f"evaluate {key} main shape") * tol * emax,
+                 _evaluate_bound(e, idx))):
             runs = [_time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)]
-            err = (k().double() - ref).abs().max().item()
-            scale = na * nb if name != "evaluate" else ref.abs().max().item()
+            err = check()
+            scale = aa if name != "evaluate" else emax
             rows[name] = {"ms": (runs[1] + runs[2]) / 2,
                           "plain_ms": (runs[0] + runs[3]) / 2,
                           "max_abs_err": err, "rel_err": err / scale,
@@ -709,7 +720,8 @@ def phase_half_timings(zp, ev, dev):
               + "; ".join(f"{n} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
                           f"bound {v['bound_ms']:.4f} ms by {v['bound_by']}, "
                           f"max abs err {v['max_abs_err']:.3e} "
-                          f"({v['rel_err']:.2e} of {'|a||b|' if n != 'evaluate' else 'max|ref|'})"
+                          f"({v['rel_err']:.2e} of {'|a|^2' if n != 'evaluate' else 'max|ref|'}"
+                          f", tolerance {tol:g})"
                           for n, v in rows.items()))
     return out
 
@@ -798,6 +810,21 @@ def _svd_drivers(a, dev):
     return out
 
 
+def _d12_train(tensor_network, inds, dev):
+    """A d=12, n=32, r=100 f64 train and B points, from
+    ``default_rng(SEED + 9)``: the cores in order (the middle ones scaled
+    by 1/sqrt(n r)), then the (B, d) points."""
+    d = len(inds)
+    rng = np.random.default_rng(SEED + 9)
+    t = tensor_network.rand_tt(inds, [R] * (d - 1), dtype=torch.float64, device=dev)
+    for k in range(d):
+        v = rng.standard_normal(tuple(t.value(k).shape))
+        if 0 < k < d - 1:
+            v /= math.sqrt(N * R)
+        t.node_tensor(k).update_val_size(torch.from_numpy(v).to(dev))
+    return t, rng.integers(0, N, (B, d))
+
+
 def phase_rounding(a, inds, idx_np, ev_ref, dev):
     """Every tt_round_fixed method at full width: ``a + a`` of the main
     path's train (d=50, n=32, r=100, f32) at eps = 1e-3.  Each must keep
@@ -806,11 +833,13 @@ def phase_rounding(a, inds, idx_np, ev_ref, dev):
     evaluation of a).  Reports the wall time (median of 5 calls after 2
     warm-ups, synchronised), one call's device-busy time, kernel count and
     largest kernels (torch.profiler), and the host syncs of one call.
-    Then, at d=12 in f64 and eps = 1e-6 (above the Gram methods' f64
-    floor, ~6e-8, below which they keep Gram-squaring ghosts), each
-    method for correctness only: the same structural ranks and 1e-8 of
-    max|2a| at the points.  Floor warnings (the Gram methods' at
-    eps = 1e-3 in f32) are printed, not fatal."""
+    Then, at d=12 in f64 and eps = 1e-9, each method for correctness
+    only: the structural ranks and 1e-8 of max|2a| at the points; gram,
+    whose f64 floor (~6e-8) lies above 1e-9, keeps ghost ranks there as
+    the JAX package's does, so it is held to ranks within the doubled
+    train's and checked again at eps = 1e-6 for the structural ranks.
+    Floor warnings (the Gram methods' at eps = 1e-3 in f32) are printed,
+    not fatal."""
     import warnings
 
     from tensor_networks_tpu_torch import TensorNetwork, packed, tt_round_fixed
@@ -860,33 +889,42 @@ def phase_rounding(a, inds, idx_np, ev_ref, dev):
               + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top))
     rows["svd_drivers"] = _svd_drivers(a, dev)
 
-    # d=12, f64: correctness only
+    # d=12, f64: correctness only, on a train made with NumPy so that the
+    # CPU tests can round the same one through the JAX package
+    # (tests/test_torch_round.py::test_gram_keeps_ghost_ranks_below_its_floor_as_jax_does)
     from tensor_networks_tpu_torch import Index
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 9)
     d12 = 12
     inds12 = [Index(f"y{k}", N) for k in range(d12)]
-    t12 = TensorNetwork.rand_tt(inds12, [R] * (d12 - 1), dtype=torch.float64, generator=g)
-    for k in range(1, d12 - 1):
-        t12.node_tensor(k).update_val_size(t12.value(k) / math.sqrt(N * R))
-    pts = torch.randint(0, N, (B, d12), generator=g, device=dev)
-    ref12 = 2 * ev.tt_evaluate_plain(*stack(packed.pack(t12)), pts).cpu().numpy()
-    pts = pts.cpu().numpy()
+    t12, pts = _d12_train(TensorNetwork, inds12, dev)
+    ref12 = 2 * ev.tt_evaluate_plain(*stack(packed.pack(t12)),
+                                     torch.from_numpy(pts).to(dev)).cpu().numpy()
     want12 = [N] + [R] * (d12 - 3) + [N]
     errs = {}
-    for method in ROUND_METHODS:
+    for method, eps in [(m, 1e-9) for m in ROUND_METHODS] + [("gram", 1e-6)]:
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
-            rounded, ranks = tt_round_fixed(t12 + t12, 1e-6, method=method)
+            rounded, ranks = tt_round_fixed(t12 + t12, eps, method=method)
         for w in {str(w.message) for w in rec}:
-            print(f"  {method} warns (d=12 f64): {w}")
-        if ranks != want12:
-            raise AssertionError(f"{method} d=12 f64 kept ranks {ranks}, want {want12}")
-        errs[method] = np.abs(rounded.evaluate(inds12, pts) - ref12).max() / np.abs(ref12).max()
-        if not errs[method] <= 1e-8:
-            raise AssertionError(f"{method} d=12 f64: max err / max|2a| = {errs[method]:.3e}")
-    print(f"  d={d12} f64 a + a at eps 1e-6: ranks ok for every method, max err / "
-          "max|2a| " + ", ".join(f"{m} {e:.2e}" for m, e in errs.items()))
+            print(f"  {method} warns (d=12 f64, eps {eps:g}): {w}")
+        if method == "gram" and eps < 6e-8:
+            # below gram's f64 floor (4 sqrt(mach eps) ~ 6e-8, its warning)
+            # the Gram eigenvalues' roundoff keeps ghost directions, in
+            # the JAX package too: ranks between the structural ones and
+            # the doubled train's, the error as small
+            ok = (ranks[0] == ranks[-1] == N
+                  and all(R <= k <= 2 * R for k in ranks[1:-1]))
+            print(f"  gram at eps {eps:g}, below its floor, kept ranks {ranks}")
+        else:
+            ok = ranks == want12
+        if not ok:
+            raise AssertionError(f"{method} d=12 f64 eps {eps:g} kept ranks {ranks}")
+        err = np.abs(rounded.evaluate(inds12, pts) - ref12).max() / np.abs(ref12).max()
+        errs[f"{method} {eps:g}"] = err
+        if not err <= 1e-8:
+            raise AssertionError(f"{method} d=12 f64 eps {eps:g}: max err / max|2a| = {err:.3e}")
+    print(f"  d={d12} f64 a + a: ranks ok for every method (structural, but gram "
+          "at 1e-9), max err / max|2a| " + ", ".join(f"{m} {e:.2e}" for m, e in errs.items()))
     print(json.dumps({"rounding": rows}))
     return rows
 
@@ -921,7 +959,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.cuda_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.NVCC_FLAGS[1]})")
+    parts = _build.BUILD_SECONDS.get("libtnt_kernels.so", {})
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, {_build.NVCC_FLAGS[1]}; "
+          "one nvcc per source, started together, then the link: "
+          + (", ".join(f"{k} {v:.2f} s" for k, v in parts.items()) or "built before")
+          + ")")
     print(f"card: {card}")
 
     phase_default_device()

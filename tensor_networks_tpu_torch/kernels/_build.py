@@ -6,7 +6,7 @@ Two shared libraries with plain C interfaces, loaded with ctypes:
   one ``nvcc`` per source, all started together, then linked
   (:func:`cuda_library`);
 * the contraction-path optimizer shared with the JAX package,
-  ``native/path_optimizer.cpp``, compiled by ``g++``
+  ``native/path_optimizer.cpp``, compiled by ``g++`` the same way
   (:func:`compile_shared`, used by :mod:`tensor_networks_tpu_torch.native`).
 
 Each library lands in ``kernels/_build/<hash of sources + flags>/``, so an
@@ -24,8 +24,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -41,6 +43,9 @@ NVCC_FLAGS = [
 #: the storage types every H1 / H2 entry point is built for
 DTYPE_SUFFIXES = ("f32", "f64", "bf16", "f16")
 
+#: wall seconds of the last build of each library, by source and "link"
+BUILD_SECONDS: Dict[str, Dict[str, float]] = {}
+
 _LOCK = threading.Lock()
 _CUDA_LIB: Optional[ctypes.CDLL] = None
 
@@ -51,19 +56,19 @@ def compile_shared(
     flags: List[str],
     name: str,
     headers: Sequence[Path] = (),
-    separate: bool = False,
 ) -> Path:
     """Compile ``sources`` into ``_build/<hash>/<name>`` unless present.
 
-    The hash covers the compiler name, the flags and the bytes of every
-    source and header.  With ``separate`` each source is compiled to an
-    object by a process of its own, all started together, and the
-    objects are then linked; otherwise one compiler call builds the
-    library.  Raises ``RuntimeError`` carrying the compiler's stderr
-    when the build fails.
+    Each source is compiled to an object by a process of its own, all
+    started together, and the objects are then linked into one shared
+    library.  The hash covers the compiler name, the flags and the bytes
+    of every source and header.  The wall seconds of each compile and of
+    the link land in :data:`BUILD_SECONDS` under the library's name.
+    Raises ``RuntimeError`` carrying the compiler's stderr when the build
+    fails.
     """
     digest = hashlib.sha256()
-    digest.update(" ".join([compiler] + flags + [str(separate)]).encode())
+    digest.update(" ".join([compiler] + flags).encode())
     for src in list(sources) + list(headers):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -75,46 +80,42 @@ def compile_shared(
     # build under private names, then rename: a concurrent process never
     # loads a half-written library
     tmp = out_dir / f"tmp{os.getpid()}-{name}"
-    if separate:
-        objs = [out_dir / f"tmp{os.getpid()}-{s.stem}.o" for s in sources]
-        _run_all(
-            [
-                [compiler] + flags + ["-c", "-o", str(o), str(s)]
-                for s, o in zip(sources, objs)
-            ],
-            name,
-        )
-        _run_all(
-            [[compiler] + flags + ["-shared", "-o", str(tmp)]
-             + [str(o) for o in objs]],
-            name,
-        )
-        for o in objs:
-            o.unlink()
-    else:
-        _run_all(
-            [[compiler] + flags + ["-o", str(tmp)] + [str(s) for s in sources]],
-            name,
-        )
+    objs = [out_dir / f"tmp{os.getpid()}-{s.stem}.o" for s in sources]
+    secs = _run_all(
+        [[compiler] + flags + ["-c", "-o", str(o), str(s)]
+         for s, o in zip(sources, objs)],
+        name,
+    )
+    secs += _run_all(
+        [[compiler] + flags + ["-shared", "-o", str(tmp)] + [str(o) for o in objs]],
+        name,
+    )
+    for o in objs:
+        o.unlink()
     os.replace(tmp, target)
+    BUILD_SECONDS[name] = dict(
+        zip([s.name for s in sources] + ["link"], secs)
+    )
     return target
 
 
-def _run_all(cmds: List[List[str]], name: str) -> None:
+def _run_all(cmds: List[List[str]], name: str) -> List[float]:
     """Start every command at once, wait for all, raise on the first
-    that failed (with its stderr)."""
-    procs = [
-        subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        )
-        for cmd in cmds
-    ]
-    outs = [p.communicate() for p in procs]
-    for cmd, p, (_, err) in zip(cmds, procs, outs):
-        if p.returncode != 0:
+    that failed (with its stderr); returns each command's wall seconds."""
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(run, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
+        if proc.returncode != 0:
             raise RuntimeError(
-                f"build of {name} failed ({' '.join(cmd)}):\n{err}"
+                f"build of {name} failed ({' '.join(cmd)}):\n{proc.stderr}"
             )
+    return [secs for _, secs in done]
 
 
 def find_nvcc() -> str:
@@ -180,7 +181,6 @@ def cuda_library() -> ctypes.CDLL:
                 NVCC_FLAGS,
                 "libtnt_kernels.so",
                 headers=sorted(CSRC.glob("*.cuh")),
-                separate=True,
             )
             lib = ctypes.CDLL(str(path))
             _bind(lib)

@@ -26,7 +26,7 @@ logger = logging.getLogger(__name__)
 _SRC = (
     Path(__file__).resolve().parent.parent / "native" / "path_optimizer.cpp"
 )
-_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17"]
 
 MAX_NATIVE_OPERANDS = 18
 

@@ -8,8 +8,10 @@ to the JAX package's kept ranks, to its represented tensor within 1e-10
 relative (both run the same algorithm; summation order and the
 Newton-Schulz stopping point differ), and to the dense input within the
 reference test's own bound.  Also: the padded entry, the f32 flat
-spectrum, the NaN breakdown fallback, ``ROUND_STATS`` and the prefix
-chain precision switch.
+spectrum, the NaN breakdown fallback, ``ROUND_STATS``, the prefix
+chain precision switch (against ``highest`` and against the JAX
+package's ``dw``), and gram's ghost ranks below its floor on the card
+smoke's d=12 train.
 """
 
 import warnings
@@ -156,7 +158,19 @@ def test_bond_bounds_of_the_padded_chain():
 def test_cholqr2_f32_flat_spectrum_truncates():
     """Eight unit rank-1 terms plus one at 1e-8, in f32: cholqr2 drops
     the small one at eps=1e-4 (the JAX package's own test), with JAX's
-    ranks."""
+    ranks and, through the inner product, JAX's train."""
+    s = _flat_spectrum_f32()
+    jr, jranks = jfast.tt_round_fixed(s.__deepcopy__({}), 1e-4, method="cholqr2")
+    ts = _to_torch(s, torch.float32)
+    tr, tranks = tfast.tt_round_fixed(ts, 1e-4, method="cholqr2")
+    assert max(tranks) == 8
+    assert tranks == jranks
+    assert tr.value(list(tr.network.nodes)[1]).dtype == torch.float32
+    assert _sq_dist(jr, tr) <= 1e-9
+
+
+def _flat_spectrum_f32():
+    """Eight unit rank-1 terms plus one at 1e-8 over 30 modes of 8, f32."""
     rng = np.random.default_rng(0)
     ins = [jtn.Index(f"q{i}", 8) for i in range(30)]
 
@@ -171,14 +185,12 @@ def test_cholqr2_f32_flat_spectrum_truncates():
         s.node_tensor(node).update_val_size(
             np.asarray(s.value(node), np.float32)
         )
-    jr, jranks = jfast.tt_round_fixed(s.__deepcopy__({}), 1e-4, method="cholqr2")
-    ts = _to_torch(s, torch.float32)
-    tr, tranks = tfast.tt_round_fixed(ts, 1e-4, method="cholqr2")
-    assert max(tranks) == 8
-    assert tranks == jranks
-    assert tr.value(list(tr.network.nodes)[1]).dtype == torch.float32
-    # the rounded train against the JAX one, through the inner product
-    # (the dense tensor has 8**30 entries): |x - y|^2 relative
+    return s
+
+
+def _sq_dist(jr, tr):
+    """|x - y|^2 / |x|^2 of the JAX result x and the port's y, in f64
+    through the inner product (the dense tensor may be out of reach)."""
     jp = _to_torch(jr, torch.float64)
     tp = ttn.TensorNetwork.from_separated_dict(
         *tr.to_separated_dict(), device="cpu", dtype=torch.float64
@@ -186,7 +198,7 @@ def test_cholqr2_f32_flat_spectrum_truncates():
     xx = float(ttn.tt_inner_fast(jp, jp))
     yy = float(ttn.tt_inner_fast(tp, tp))
     xy = float(ttn.tt_inner_fast(jp, tp))
-    assert (xx + yy - 2 * xy) / xx <= 1e-9
+    return (xx + yy - 2 * xy) / xx
 
 
 def test_nan_breakdown_falls_back_to_the_householder_sweep(monkeypatch):
@@ -261,6 +273,71 @@ def test_prefix_chain_precision_dw_matches_highest(monkeypatch):
     assert _rel(out["dw"][0], out["highest"][0]) <= 1e-10
     with pytest.warns(RuntimeWarning, match=r"~3\.0e-08 noise floor"):
         tfast.tt_round_fixed(_to_torch(jt), 1e-10, method="prefix")
+
+
+@pytest.mark.parametrize("train", ["doubled_f64", "flat_spectrum_f32"])
+def test_prefix_chain_precision_dw_matches_jax(monkeypatch, train):
+    """``TNT_PREFIX_CHAIN_PREC=dw`` in both packages (each reads it at
+    call time): the port's f64 carries and trust filters against the JAX
+    package's double-word carries, whose power-iteration start vector is
+    another (``jax.random``) draw.  Same ranks and warnings; the f64
+    doubled train within 1e-10 relative, the f32 flat spectrum (where the
+    carries leave the cores' dtype, and the result comes back in f32)
+    within f32 roundoff through the inner product."""
+    monkeypatch.setenv("TNT_PREFIX_CHAIN_PREC", "dw")
+    if train == "doubled_f64":
+        jt, eps, bound = _doubled()
+    else:
+        jt, eps, bound = _flat_spectrum_f32(), 1e-3, None
+    (jr, jranks, jmsgs), (tr, tranks, tmsgs) = _round_both(jt, eps, "prefix")
+    assert tranks == jranks
+    assert tmsgs == jmsgs
+    if bound is None:
+        assert tranks == [8] * 29
+        assert tr.value(1).dtype == torch.float32
+        assert _sq_dist(jr, tr) <= 1e-9
+    else:
+        assert tranks == [4] * 6
+        order = [i.name for i in jt.free_indices()]
+        got = _dense(tr, order)
+        assert _rel(got, _dense(jr, order)) <= 1e-10
+        assert _rel(got, _dense(jt, order)) <= bound
+
+
+def _chip_smoke_d12_train():
+    """The d=12 train of ``chip_smoke.py``'s phase 4 (its ``_d12_train``):
+    n=32, r=100, f64 cores drawn in order from ``default_rng(1234 + 9)``,
+    the middle ones scaled by 1/sqrt(n r), then 8192 points."""
+    d, n, r = 12, 32, 100
+    rng = np.random.default_rng(1234 + 9)
+    inds = [jtn.Index(f"y{k}", n) for k in range(d)]
+    a = jtn.TensorNetwork.rand_tt(inds, [r] * (d - 1))
+    for k in range(d):
+        v = rng.standard_normal(np.shape(a.value(k)))
+        if 0 < k < d - 1:
+            v /= np.sqrt(n * r)
+        a.node_tensor(k).update_val_size(v)
+    return a, [ttn.Index(i.name, i.size) for i in inds], rng.integers(0, n, (8192, d))
+
+
+def test_gram_keeps_ghost_ranks_below_its_floor_as_jax_does():
+    """The card's d=12 f64 train, doubled, at eps 1e-9, below gram's f64
+    floor (~6e-8): the Gram eigenvalues' roundoff keeps ghost directions
+    on every middle bond in both packages (how many is roundoff, and
+    differs between them); both warn alike, and both stay within 1e-10
+    of each other and 1e-8 of 2a at the first 500 of the card's points."""
+    a, inds, pts = _chip_smoke_d12_train()
+    pts = pts[:500]
+    (jr, jranks, jmsgs), (tr, tranks, tmsgs) = _round_both(a + a, 1e-9, "gram")
+    assert tmsgs == jmsgs and len(tmsgs) == 1
+    for ranks in (jranks, tranks):
+        assert ranks[0] == ranks[-1] == 32
+        assert all(100 < k <= 200 for k in ranks[1:-1]), ranks
+    ref = 2 * _to_torch(a).evaluate(inds, pts)
+    got = tr.evaluate(inds, pts)
+    scale = np.abs(ref).max()
+    assert np.abs(got - _to_torch(jr).evaluate(inds, pts)).max() <= 1e-10 * scale
+    assert np.abs(got - ref).max() <= 1e-8 * scale
 
 
 def test_triangular_solves_match_numpy():
