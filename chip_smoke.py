@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-four phases:
+five phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -31,9 +31,21 @@ four phases:
 4. every ``tt_round_fixed`` method on the main path's ``a + a``: kept
    ranks, error, wall time, device-busy time, kernel count and host
    syncs; ``torch.linalg.svd``'s drivers on the svd sweep's R factors;
-   each method at d=12 in f64 for correctness.
+   each method at d=12 in f64 for correctness;
+5. cross approximation on the card: the JAX package's ``cross_device``
+   leg (a d=8, n=32, rank-24 f32 target sampled in float64 through the
+   evaluation kernel, kickrank 4, VALID_ERROR, max_iters 8, eps 1e-8),
+   with the launch counters reset just before and read just after, its
+   wall time split into fibers, target evaluation, pivots, check and
+   the rest, and the same cross on the CPU; the ``cross_host`` leg
+   (Ackley d=8, VALID_ERROR and NORM), HT and Tucker; the kernels at the
+   slice's new call shapes against their plain versions
+   (``evaluate_ensemble``, ``tt_evaluate_fast`` and its gradient,
+   ``evaluate_dw``, ``maxvol_device`` against the host loop); timings of
+   the f64 evaluation, the ensemble and maxvol.
 
-Then a JSON line with phase 4's numbers, one with per-kernel results,
+Then a JSON line with phase 4's numbers, one with phase 5's, one with
+per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -929,15 +941,398 @@ def phase_rounding(a, inds, idx_np, ev_ref, dev):
     return rows
 
 
+# -- phase 5: cross approximation on the card -------------------------------
+
+CROSS_D, CROSS_N, CROSS_R = 8, 32, 24  # the JAX package's cross_device leg
+FP64_TC_FLOP_PER_S = 67e12  # H100 SXM, FP64 tensor cores, published
+FP64_FMA_FLOP_PER_S = 34e12  # H100 SXM, FP64 outside the tensor cores
+
+
+def _ackley(cross_mod):
+    """The Ackley function of ``tests/test_cross.py`` as a CachedFunc."""
+
+    class Ackley(cross_mod.CachedFunc):
+        def _run(self, args):
+            y1 = -20 * np.exp(-0.2 * np.sqrt(np.sum(args**2, axis=1) / args.shape[1]))
+            y2 = -np.exp(np.sum(np.cos(2 * np.pi * args), axis=1) / args.shape[1])
+            return y1 + y2 + 20 + np.exp(1.0)
+
+    return Ackley
+
+
+def _split_cross(engine, func, net, eps, sync):
+    """Run ``engine.cross(net, eps=eps)`` with its parts timed on the
+    host's clock: the fiber requests (point assembly, the target's
+    CachedFunc bookkeeping and its evaluation), within them and in the
+    validation reference the target's evaluation alone, the pivot
+    choice, the convergence check, and the rest (copies of the
+    iterate, core installs, rank growth).  Returns (result, wall s,
+    {part: s}, [target batch sizes])."""
+    parts = {"fibers": 0.0, "target evaluation": 0.0, "pivots": 0.0, "check": 0.0}
+    batches = []
+
+    def timed(key, fn, note=None):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            parts[key] += time.perf_counter() - t0
+            if note is not None:
+                note(args)
+            return out
+        return wrapper
+
+    engine._eval_fibers = timed("fibers", engine._eval_fibers)
+    engine._pick = timed("pivots", engine._pick)
+    engine._error = timed("check", engine._error)
+    func._run = timed("target evaluation", func._run,
+                      lambda args: batches.append(len(args[0])))
+    sync()
+    t0 = time.perf_counter()
+    res = engine.cross(net, eps=eps)
+    sync()
+    wall = time.perf_counter() - t0
+    parts["rest"] = wall - parts["fibers"] - parts["pivots"] - parts["check"]
+    return res, wall, parts, batches
+
+
+def _rel_err(got, ref):
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _cross_device_leg(ev, dev, target, t_inds, device):
+    """The JAX package's ``cross_device`` leg on ``device``: a
+    FuncTensorNetwork target sampled in float64 (``precision="dw"``),
+    kickrank 4, VALID_ERROR on 2000 points, max_iters 8, eps 1e-8, the
+    pivot generator seeded by ``np.random.seed(SEED)``."""
+    from tensor_networks_tpu_torch import TensorNetwork, cross
+
+    func = cross.FuncTensorNetwork(t_inds, target, precision="dw")
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    net = TensorNetwork.rand_tt(t_inds, [1] * (CROSS_D - 1), device=device,
+                                generator=gen)
+    np.random.seed(SEED)
+    engine = cross.CrossApproximation(func, cross.CrossConfig(
+        kickrank=4, convergence=cross.ConvergenceCheck.VALID_ERROR,
+        validation_size=2000, max_iters=8))
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    res, wall, parts, batches = _split_cross(engine, func, net, 1e-8, sync)
+    launches = {"evaluate": ev.tt_evaluate_cuda.launches,
+                "by_dtype": {k: v for k, v in ev.tt_evaluate_cuda.launches_by_dtype.items() if v},
+                "tiles": ev.group_tiles_cuda.launches}
+    grid = np.random.default_rng(11).integers(0, CROSS_N, (4096, CROSS_D))
+    real = target.evaluate(t_inds, grid, precision="dw")
+    err_dw = _rel_err(res.net.evaluate(t_inds, grid, precision="dw"), real)
+    return {"wall_s": wall, "evals": func.num_calls(), "ranks": res.net.ranks(),
+            "err_dw": err_dw, "parts": parts, "batches": batches, "net": res.net,
+            "grid": grid, "real": real, "sweeps": len(res.ranks_and_errors),
+            "launches": launches}
+
+
+def phase_cross(ev, dev):
+    """Cross approximation on the card, with counts reset just before
+    the ``cross_device`` run and read just after; then the JAX package's
+    ``cross_host`` leg (VALID_ERROR and NORM), HT and Tucker."""
+    import copy
+
+    from tensor_networks_tpu_torch import Index, TensorNetwork, cross
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    t_inds = [Index(f"t{k}", CROSS_N) for k in range(CROSS_D)]
+    target = TensorNetwork.rand_tt(t_inds, [CROSS_R] * (CROSS_D - 1),
+                                   dtype=torch.float32, generator=g)
+    for k in range(CROSS_D):
+        t = target.node_tensor(k)
+        t.update_val_size(t.value / math.sqrt(CROSS_R))
+
+    torch.cuda.synchronize()
+    ev.tt_evaluate_cuda.launches = 0
+    ev.tt_evaluate_cuda.launches_by_dtype = dict.fromkeys(
+        ev.tt_evaluate_cuda.launches_by_dtype, 0)
+    ev.group_tiles_cuda.launches = 0
+    card = _cross_device_leg(ev, dev, target, t_inds, dev)
+    launches = card["launches"]  # read just after the cross
+    if launches["by_dtype"].get("f64", 0) == 0 or launches["tiles"] == 0:
+        raise AssertionError(f"the cross's fibers missed H2's f64 kernel: {launches}")
+    # the model evaluated by a plain f32 evaluate (H2's f32 instantiation)
+    net32 = copy.deepcopy(card["net"])
+    for n in net32.network.nodes:
+        net32.node_tensor(n).update_val_size(net32.value(n).float())
+    err32 = _rel_err(net32.evaluate(t_inds, card["grid"]), card["real"])
+    # the same cross on the CPU, the target copied there
+    target_cpu = TensorNetwork.from_separated_dict(*target.to_separated_dict(),
+                                                   device="cpu")
+    host = _cross_device_leg(ev, dev, target_cpu, t_inds, "cpu")
+    for name, leg in (("card", card), ("cpu", host)):
+        if not leg["err_dw"] <= 1e-6:
+            raise AssertionError(f"cross_device on the {name}: error {leg['err_dw']:.3e} > 1e-6")
+    fiber_b = max(card["batches"])
+    print(f"phase 5 cross_device d={CROSS_D} n={CROSS_N} target rank {CROSS_R} f32 "
+          f"(dw fibers, kickrank 4, VALID_ERROR 2000, max_iters 8, eps 1e-8): ok; card: "
+          f"wall {card['wall_s']:.4f} s, {card['sweeps']} sweeps, {card['evals']} unique "
+          f"evaluations, ranks {card['ranks']}, error at 4096 points {card['err_dw']:.3e} "
+          f"(f64) {err32:.3e} (f32 evaluate of the model); H2 launches {launches}; "
+          "wall split s: " + ", ".join(f"{k} {v:.4f}" for k, v in card["parts"].items())
+          + f"; largest target batch {fiber_b}; cpu: wall {host['wall_s']:.4f} s, "
+          f"{host['evals']} unique evaluations, ranks {host['ranks']}, error "
+          f"{host['err_dw']:.3e}, split s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in host["parts"].items()))
+    out = {"cross_device": {
+        "wall_s": card["wall_s"], "evals": card["evals"], "sweeps": card["sweeps"],
+        "ranks": card["ranks"], "err_f64": card["err_dw"], "err_f32_eval": err32,
+        "launches": launches, "split_s": card["parts"], "fiber_batch": fiber_b,
+        "cpu": {"wall_s": host["wall_s"], "evals": host["evals"],
+                "err_f64": host["err_dw"], "ranks": host["ranks"]}}}
+
+    # cross_host: Ackley d=8 on linspace(-2, 2, 16), the network on the card
+    Ackley = _ackley(cross)
+    c_inds = [Index(f"c{k}", 16, tuple(np.linspace(-2.0, 2.0, 16))) for k in range(8)]
+    grid = np.random.default_rng(5).integers(0, 16, (4096, 8))
+    for check, extra in (("VALID_ERROR", {"validation_size": 2000}),
+                         ("NORM", {"max_iters": 30})):
+        np.random.seed(7)
+        func = Ackley(c_inds)
+        net = TensorNetwork.rand_tt(c_inds, [1] * 7)
+        engine = cross.CrossApproximation(func, cross.CrossConfig(
+            kickrank=2, convergence=getattr(cross.ConvergenceCheck, check), **extra))
+        res, wall, parts, _ = _split_cross(engine, func, net, 1e-4, torch.cuda.synchronize)
+        err = _rel_err(res.net.evaluate(func.indices, grid), func(grid))
+        if not err <= 1e-4 or not all(res.net.value(k).is_cuda for k in range(8)):
+            raise AssertionError(f"cross_host {check}: error {err:.3e} > 1e-4, or off the card")
+        out[f"cross_host_{check.lower()}"] = {
+            "wall_s": wall, "evals": func.num_calls(), "ranks": res.net.ranks(),
+            "err": err, "split_s": parts}
+        print(f"  cross_host d=8 n=16 Ackley, kickrank 2, {check}, eps 1e-4: ok, wall "
+              f"{wall:.4f} s, {func.num_calls()} unique evaluations, ranks "
+              f"{res.net.ranks()}, error at 4096 points {err:.3e}; split s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+
+    # HT and Tucker through the runners, on the card by default
+    inds4 = [Index(c, s, tuple(np.linspace(-32.768, 32.768, s)))
+             for c, s in (("i", 8), ("j", 10), ("k", 12), ("l", 20))]
+    grid4 = np.stack(np.meshgrid(*[range(i.size) for i in inds4]), -1).reshape(-1, 4)
+    for runner in (cross.HTCrossRunner(), cross.TuckerCrossRunner()):
+        np.random.seed(4)
+        func = Ackley(inds4)
+        t0 = time.perf_counter()
+        net = runner.run(func, eps=1e-4)
+        wall = time.perf_counter() - t0
+        err = _rel_err(net.evaluate(func.indices, grid4), func(grid4))
+        if not err <= 1e-4 or not all(net.value(n).is_cuda for n in net.network.nodes):
+            raise AssertionError(f"{runner.ansatz} cross: error {err:.3e} > 1e-4, or off the card")
+        out[f"cross_{runner.ansatz}"] = {"wall_s": wall, "evals": func.num_calls(), "err": err}
+        print(f"  {runner.ansatz} cross of Ackley on (8, 10, 12, 20), eps 1e-4: ok, wall "
+              f"{wall:.4f} s, {func.num_calls()} unique evaluations, error on the full "
+              f"grid {err:.3e}")
+    return out, launches, target
+
+
+def _ensemble_trains(g, e, dtype):
+    return [_train(g, CROSS_D, CROSS_N, 32, 1 / math.sqrt(32), dtype=dtype) for _ in range(e)]
+
+
+def phase_cross_kernels(ev, dev, pa, idx):
+    """The kernels on the slice's new call shapes against their plain
+    versions, each twice for the same bits: evaluate_ensemble (64 trains
+    at d=8, n=32, r=32, 64 points each; f32 and f64), tt_evaluate_fast
+    (forward, and its gradient against autograd of the plain evaluator),
+    evaluate_dw at the main shape, and maxvol_device against the host
+    loop."""
+    import importlib
+
+    from tensor_networks_tpu_torch import packed
+
+    mv = importlib.import_module("tensor_networks_tpu_torch.cross.maxvol")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    tol = {torch.float32: 1e-4, torch.float64: 1e-10}
+    worst, checks = {}, 0
+
+    def note(key, err, limit, what):
+        nonlocal checks
+        if not err <= limit:
+            raise AssertionError(f"{what}: relative error {err:.3e} > {limit}")
+        worst[key] = max(worst.get(key, 0.0), err / limit)
+        checks += 1
+
+    def same_bits(fn, what):
+        a, b = fn(), fn()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: two calls differ")
+        return a
+
+    pts = torch.randint(0, CROSS_N, (64, 64, CROSS_D), generator=g, device=dev)
+    for dt in (torch.float32, torch.float64):
+        trains = [packed.PackedTT(*t) for t in _ensemble_trains(g, 64, dt)]
+        (got,) = same_bits(lambda: (packed.evaluate_ensemble(trains, pts),),
+                           f"evaluate_ensemble {dt}")
+        ref = torch.stack([ev.tt_evaluate_plain(*_f64(*t), pts[e])
+                           for e, t in enumerate(trains)])
+        note("ensemble", ((got.double() - ref).abs().max() / ref.abs().max()).item(),
+             tol[dt], f"evaluate_ensemble {dt}")
+        cores = [x.requires_grad_(True) for x in _f64(*trains[0])]
+        ref_fwd = ev.tt_evaluate_plain(*cores, pts[0])
+        ref_grads = torch.autograd.grad(ref_fwd.sum(), cores)
+        base = [x.detach().to(dt) for x in cores]
+
+        def fast():
+            c = [x.clone().requires_grad_(True) for x in base]
+            out = packed.tt_evaluate_fast(*c, pts[0])
+            return (out.detach(),) + torch.autograd.grad(out.sum(), c)
+
+        fwd, *grads = same_bits(fast, f"tt_evaluate_fast {dt}")
+        note("tt_evaluate_fast", ((fwd.double() - ref_fwd).abs().max()
+                                  / ref_fwd.abs().max()).item(), tol[dt],
+             f"tt_evaluate_fast forward {dt}")
+        for x, y in zip(grads, ref_grads):
+            note("tt_evaluate_fast", ((x.double() - y).abs().max() / y.abs().max()).item(),
+                 tol[dt], f"tt_evaluate_fast gradient {dt}")
+    (got,) = same_bits(lambda: (torch.from_numpy(packed.evaluate_dw(pa, idx)),),
+                       "evaluate_dw")
+    ref = ev.tt_evaluate_plain(*_f64(*stack(pa)), idx).cpu()
+    note("evaluate_dw", ((got - ref).abs().max() / ref.abs().max()).item(), 1e-12,
+         "evaluate_dw at the main shape")
+    rng = np.random.default_rng(SEED + 14)
+    mats = {}
+    for n, r in ((768, 24), (3200, 100), (12800, 200)):
+        a = np.linalg.qr(rng.standard_normal((n, r)))[0]
+        mats[(n, r)] = a
+        rows_h, _ = mv.maxvol(a)
+        rows, b = same_bits(lambda: mv.maxvol_device(torch.from_numpy(a).to(dev)),
+                            f"maxvol_device ({n}, {r})")
+        rows, b = rows.cpu().numpy(), b.cpu().numpy()
+        if not np.abs(b).max() <= 1.05 + 1e-8 or len(set(rows)) != r:
+            raise AssertionError(f"maxvol_device ({n}, {r}): max|B| {np.abs(b).max():.4f}")
+        note("maxvol", np.abs(b @ a[rows] - a).max(), 1e-10,
+             f"maxvol_device ({n}, {r}) interpolation")
+        ld_d = np.linalg.slogdet(a[rows])[1]
+        ld_h = np.linalg.slogdet(a[rows_h])[1]
+        note("maxvol det", abs(math.expm1(ld_d - ld_h)), 0.01,
+             f"maxvol_device ({n}, {r}) |det| against the host's")
+        print(f"  maxvol ({n}, {r}): device rows {'equal' if np.array_equal(np.sort(rows), np.sort(rows_h)) else 'differ from'} the host's, "
+              f"log|det| device {ld_d:.6f} host {ld_h:.6f}, max|B| {np.abs(b).max():.4f}")
+    torch.cuda.synchronize()
+    print(f"phase 5 kernels on the cross's shapes: ok, {checks} checks (each twice, "
+          "bit-identical), worst err/tol " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return mats
+
+
+def _host_ms(fn, reps):
+    """Median ms of ``reps`` synchronised calls on the host's clock."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(runs)), runs
+
+
+def phase_cross_timings(ev, dev, pa, idx, target, fiber_b, mats):
+    """H2 in float64 at the main shape and at the cross's fiber shape,
+    evaluate_ensemble against 64 separate calls, and host maxvol against
+    maxvol_device.  Bounds: float64 operations over the FP64 tensor-core
+    peak (67 TFLOP/s), with the FMA rate (34 TFLOP/s) printed beside."""
+    import importlib
+
+    from tensor_networks_tpu_torch import packed
+
+    mv = importlib.import_module("tensor_networks_tpu_torch.cross.maxvol")
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rows = {}
+    idx32 = idx.to(torch.int32).contiguous()
+    p64 = packed.pack_ragged(target, torch.float64)
+    fidx = torch.randint(0, CROSS_N, (fiber_b, CROSS_D), generator=g, device=dev,
+                         dtype=torch.int32)
+    for key, cores, pts in (("f64", _f64(*stack(pa)), idx32),
+                            ("f64_cross", list(stack(p64)), fidx)):
+        k = lambda: ev.tt_evaluate_cuda(*cores, pts)  # noqa: E731
+        p = lambda: ev.tt_evaluate_plain(*cores, pts)  # noqa: E731
+        runs = [_time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)]
+        ref = p()
+        err = (k() - ref).abs().max().item()
+        bound, by = _evaluate_bound(cores, pts)
+        fma_ms = bound * FP32_FLOP_PER_S / FP64_FMA_FLOP_PER_S if by == "operations" else bound
+        rows[key] = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
+                     "max_abs_err": err, "rel_err": err / ref.abs().max().item(),
+                     "bound_ms": bound, "bound_by": by}
+        b, d = pts.shape
+        print(f"  H2 f64 d={d} n={cores[0].shape[0]} r={cores[0].shape[1]} B={b}: kernel "
+              f"{rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, bound "
+              f"{bound:.4f} ms by {by} at 67 TFLOP/s ({100 * bound / rows[key]['ms']:.1f}% "
+              f"of it reached; {fma_ms:.4f} ms at the 34 TFLOP/s FMA rate), max rel err "
+              f"{rows[key]['rel_err']:.2e}; runs " + ",".join(f"{x:.4f}" for x in runs))
+    pts = torch.randint(0, CROSS_N, (64, 64, CROSS_D), generator=g, device=dev)
+    for dt, key in ((torch.float32, "f32"), (torch.float64, "f64")):
+        trains = [packed.PackedTT(*t) for t in _ensemble_trains(g, 64, dt)]
+        e = len(trains)
+        one = lambda: packed.evaluate_ensemble(trains, pts)  # noqa: E731
+        many = lambda: torch.stack([packed.evaluate(t, pts[i])  # noqa: E731
+                                    for i, t in enumerate(trains)])
+        folded = (torch.stack([t.first for t in trains]).reshape(e * CROSS_N, 32),
+                  torch.stack([t.mids for t in trains], dim=2).reshape(CROSS_D - 2, 32, e * CROSS_N, 32),
+                  torch.stack([t.last for t in trains], dim=1).reshape(32, e * CROSS_N))
+        fidx = (pts + torch.arange(e, device=dev)[:, None, None] * CROSS_N).reshape(-1, CROSS_D)
+        plain = lambda: ev.tt_evaluate_plain(*folded, fidx)  # noqa: E731
+        runs = [_time_ms(plain), _time_ms(one), _time_ms(many), _time_ms(many),
+                _time_ms(one), _time_ms(plain)]
+        bound, by = _evaluate_bound(list(folded), fidx)
+        err = (one().double() - many().double()).abs().max().item()
+        rows[f"ensemble_{key}"] = {"ms": (runs[1] + runs[4]) / 2,
+                                   "separate_ms": (runs[2] + runs[3]) / 2,
+                                   "plain_ms": (runs[0] + runs[5]) / 2, "max_abs_err": err,
+                                   "bound_ms": bound, "bound_by": by}
+        r_ = rows[f"ensemble_{key}"]
+        print(f"  evaluate_ensemble {key}, 64 trains d={CROSS_D} n={CROSS_N} r=32, 64 points "
+              f"each: one call {r_['ms']:.4f} ms, 64 packed.evaluate calls "
+              f"{r_['separate_ms']:.4f} ms, plain (folded) {r_['plain_ms']:.4f} ms, bound "
+              f"{bound:.4f} ms by {by} ({100 * bound / r_['ms']:.1f}%); runs "
+              + ",".join(f"{x:.4f}" for x in runs))
+    # beside the checked sizes, the cross's fiber family (32 r, r) around
+    # the gate, to place it
+    rng = np.random.default_rng(SEED + 16)
+    sizes = dict(mats)
+    for r in (32, 40, 45, 64):
+        sizes[(32 * r, r)] = np.linalg.qr(rng.standard_normal((32 * r, r)))[0]
+    mv_rows = {}
+    for (n, r), a in sorted(sizes.items()):
+        reps = 3 if n * r < 1e6 else 1
+        host_ms, _ = _host_ms(lambda: mv.maxvol(a), reps)
+        a_dev = torch.from_numpy(a).to(dev)
+        mv.maxvol_device(a_dev)
+        dev_ms, _ = _host_ms(lambda: mv.maxvol_device(a_dev), 3)
+        auto_ms, _ = _host_ms(lambda: mv.maxvol_auto(a, device=dev), 3)
+        mv_rows[f"{n}x{r}"] = {"host_ms": host_ms, "device_ms": dev_ms, "auto_ms": auto_ms}
+        print(f"  maxvol ({n}, {r}) f64: host {host_ms:.3f} ms, maxvol_device on the card "
+              f"{dev_ms:.3f} ms (from a host array, copies included: {auto_ms:.3f} ms through "
+              f"maxvol_auto, gate {mv._DEVICE_SIZE_THRESHOLD} entries)")
+    rows["maxvol"] = mv_rows
+    return rows
+
+
+def _sig(x):
+    """``x`` with every float cut to 4 significant digits (the kernels
+    line must stay near 2 KB; the phase lines print the full values)."""
+    if isinstance(x, float):
+        return float(f"{x:.4g}")
+    if isinstance(x, dict):
+        return {k: _sig(v) for k, v in x.items()}
+    return x
+
+
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
-    library_ms is null."""
+    library_ms is null.  Rows for other dtypes and shapes (phases 3 and
+    5) and evaluate_ensemble's one call (phase 5) keep their times,
+    bound and error."""
     out = {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
-    if "by_dtype" in t:  # the same kernel with 2-byte cores (phase 3)
-        out["by_dtype"] = t["by_dtype"]
+    for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                        ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms"))):
+        if group in t:
+            out[group] = {k: {f: v[f] for f in keep} for k, v in t[group].items()}
     return out
 
 
@@ -978,31 +1373,40 @@ def main() -> int:
     for name in ("inner", "chain", "evaluate"):
         times[name]["by_dtype"] = {k: v[name] for k, v in half.items()}
     phase_rounding(*main_train, dev)
+    cross_out, cross_launches, target = phase_cross(ev, dev)
+    mats = phase_cross_kernels(ev, dev, pa, idx)
+    fiber_b = min(cross_out["cross_device"]["fiber_batch"], 65536)
+    cross_times = phase_cross_timings(ev, dev, pa, idx, target,
+                                      1 << (fiber_b - 1).bit_length(), mats)
+    print(json.dumps({"cross": cross_out, "cross_timings": cross_times}))
+    for key in ("f64", "f64_cross"):
+        times["evaluate"]["by_dtype"][key] = cross_times[key]
+    times["evaluate"]["ensemble"] = {k: cross_times[f"ensemble_{k}"] for k in ("f32", "f64")}
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
-         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 (tt_inner_pallas), "
-                     "tensor_networks_tpu/kernels/pallas_ops.py:229 (tt_inner_pallas_fused)",
+         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
+                     ":229 tt_inner_pallas_fused",
          "launches": launches["zipper"], **_kernel_numbers(times["inner"])},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
-         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 (tt_inner_pallas), "
-                     "tensor_networks_tpu/kernels/pallas_ops.py:229 (tt_inner_pallas_fused), "
-                     "above rank 128",
+         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
+                     ":229 tt_inner_pallas_fused, above rank 128",
          "launches": launches["chain"], **_kernel_numbers(times["chain"])},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
-         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 (tt_evaluate_pallas), "
-                     "tensor_networks_tpu/kernels/ragged_eval.py:107 (tt_evaluate_ragged)",
-         "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"])},
+         "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
+                     "tensor_networks_tpu/kernels/ragged_eval.py:107 tt_evaluate_ragged",
+         "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"]),
+         "launches_cross": cross_launches["by_dtype"]},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
-         "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (the group counts "
-                     "of tt_evaluate_ragged, XLA ops there)",
-         "launches": launches["tiles"], **_kernel_numbers(times["tiles"])},
+         "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
+         "launches": launches["tiles"], **_kernel_numbers(times["tiles"]),
+         "launches_cross": cross_launches["tiles"]},
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [_sig(k) for k in kernels]}, separators=(",", ":")))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The same named-index tensor networks as the JAX package, written in
 PyTorch for one NVIDIA H100: an edge-aware cached contraction planner,
 uniform-train fast paths (zipper inner product, fixed-rank rounding
-sweep) and the packed device TT algebra, with the JAX package's Pallas
+sweep), the packed device TT algebra and cross approximation
+(:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
 
@@ -34,6 +35,7 @@ from tensor_networks_tpu_torch.ops import (
     stack_tt_cores,
     tt_round_fixed,
 )
+from tensor_networks_tpu_torch import cross
 
 __version__ = "0.1.0"
 
@@ -57,4 +59,5 @@ __all__ = [
     "tt_inner_fn",
     "stack_tt_cores",
     "tt_round_fixed",
+    "cross",
 ]

@@ -267,7 +267,9 @@ def tt_evaluate_cuda(
     ``tables`` are :func:`build_group_tables` of this ``idx`` (built
     here when not given; a caller that evaluates several trains at the
     same points builds them once).  Raises on anything else.  Counts one
-    launch per call in ``tt_evaluate_cuda.launches``.
+    launch per call in ``tt_evaluate_cuda.launches``, and by the cores'
+    dtype in ``tt_evaluate_cuda.launches_by_dtype`` (keys "f32", "f64",
+    "bf16", "f16").
     """
     b, d, n0, n, nl, r = _check_eval_args(first, mids, last, idx)
     dev, dtype = first.device, first.dtype
@@ -322,10 +324,12 @@ def tt_evaluate_cuda(
         )
     _build.check(lib, rc, "tt_evaluate_cuda")
     tt_evaluate_cuda.launches += 1
+    tt_evaluate_cuda.launches_by_dtype[DTYPE_SUFFIX[dtype]] += 1
     return out
 
 
 tt_evaluate_cuda.launches = 0
+tt_evaluate_cuda.launches_by_dtype = dict.fromkeys(DTYPE_SUFFIX.values(), 0)
 
 
 def tt_evaluate_per_point_cuda(first, mids, last, idx) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """TensorNetwork: a host-side graph of named-index tensors.
 
 Counterpart of ``tensor_networks_tpu/network.py`` (the subset the main
-path needs: construction, index queries, contraction, composition, the
-tree-aligned sum, batched evaluation, constructors and serialization).
+path and cross approximation need: construction, index queries,
+contraction, composition, the tree-aligned sum, batched evaluation in
+the cores' dtype or float64, the TT/HT/Tucker constructors, cost and
+serialization).
 Topology and index names stay in Python (O(d) metadata); the numbers are
 ``torch.Tensor`` values, contracted through
 :mod:`tensor_networks_tpu_torch.planner` with a cached edge-aware path.
@@ -326,14 +328,15 @@ class TensorNetwork:
         Out-of-range entries clamp to the index's range on every route,
         as the JAX package's device gathers do.  Chunks are padded to
         powers of two, as in the JAX package (which does it for compile
-        reuse), so both give identical results.  ``precision="dw"``
-        (double-word evaluation) is not ported yet.
+        reuse), so both give identical results.
+
+        ``precision="dw"`` evaluates in float64 on every route: a chain
+        on a CUDA device through the H2 kernel's float64 instantiation,
+        any other network through the general evaluator on float64
+        values.  (The JAX package's double-word arithmetic exists
+        because the TPU has no f64.)
         """
-        if precision == "dw":
-            raise NotImplementedError(
-                "precision='dw' is not ported yet (ROADMAP, port queue: "
-                "evaluate_dw becomes f64 evaluation)"
-            )
+        dtype = torch.float64 if precision == "dw" else None
         values = np.asarray(values).astype(int)
         n_total = values.shape[0]
         if values.ndim != 2 or values.shape[1] != len(indices):
@@ -341,7 +344,7 @@ class TensorNetwork:
                 f"values must be (B, {len(indices)}), got {values.shape}"
             )
 
-        ragged = self._ragged_evaluator(indices)
+        ragged = self._ragged_evaluator(indices, dtype)
         out = np.empty(n_total)
         start = 0
         while start < n_total:
@@ -356,7 +359,7 @@ class TensorNetwork:
             got = (
                 ragged(chunk)
                 if ragged is not None
-                else self._evaluate_chunk(indices, chunk)
+                else self._evaluate_chunk(indices, chunk, dtype)
             )
             # numpy has no bfloat16: the values reach it as float64
             out[start : start + batch] = (
@@ -365,20 +368,25 @@ class TensorNetwork:
             start += batch
         return out
 
-    def _ragged_evaluator(self, indices: Sequence[Index]):
+    def _ragged_evaluator(
+        self, indices: Sequence[Index], dtype: Optional[torch.dtype] = None
+    ):
         """Packed-train route for linear chains whose cores live on a
         CUDA device.
 
         A chain with one free index per core evaluates through
         :func:`ops.packed.evaluate`, which launches the evaluation kernel
-        (the JAX package gates the same route on a TPU backend).  Returns
-        a ``chunk -> (B,)`` callable, or None when the topology or the
+        (the JAX package gates the same route on a TPU backend), in
+        ``dtype`` (default: the cores' own, promoted to one).  Returns a
+        ``chunk -> (B,)`` callable, or None when the topology or the
         device does not qualify (the general evaluator handles those).
 
-        The packed cores are cached on the instance, keyed by the node
-        value OBJECTS (held, and compared by identity, so CPython id
-        reuse cannot alias) -- ``update_val_size`` replaces the value
-        tensor, so mutation invalidates the cache without bookkeeping.
+        The packs are cached on the instance, one per ``dtype``
+        argument, keyed by the node value OBJECTS (held, and compared by identity,
+        so CPython id reuse cannot alias) -- ``update_val_size``
+        replaces the value tensor, so mutation invalidates the cache
+        without bookkeeping.  A cross samples an unchanged target many
+        times a sweep; it packs once.
         """
         if len(self.network.nodes) < 3:
             return None
@@ -387,7 +395,8 @@ class TensorNetwork:
             return None
         from tensor_networks_tpu_torch.ops import packed as _pk
 
-        cached = getattr(self, "_ragged_cache", None)
+        caches = self.__dict__.setdefault("_ragged_cache", {})
+        cached = caches.get(dtype)
         if (
             cached is not None
             and len(cached[0]) == len(key)
@@ -399,8 +408,8 @@ class TensorNetwork:
             if extracted is None:
                 return None
             frees = extracted[2]
-            pk = _pk.pack_ragged(self)
-            self._ragged_cache = (key, pk, frees)
+            pk = _pk.pack_ragged(self, dtype)
+            caches[dtype] = (key, pk, frees)
         try:
             cols = [list(indices).index(f) for f in frees]
         except ValueError:  # evaluation over a different index set
@@ -419,10 +428,16 @@ class TensorNetwork:
         return run
 
     def _evaluate_chunk(
-        self, indices: Sequence[Index], chunk: np.ndarray
+        self,
+        indices: Sequence[Index],
+        chunk: np.ndarray,
+        dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
-        """One gather + contraction over a padded batch."""
+        """One gather + contraction over a padded batch, on the values
+        cast to ``dtype`` where one is named."""
         fn, values = self.evaluator(indices, chunk.shape[0])
+        if dtype is not None:
+            values = [v.to(dtype) for v in values]
         device = values[0].device
         return fn(values, torch.as_tensor(chunk, device=device))
 
@@ -530,6 +545,116 @@ class TensorNetwork:
         )
         tt.add_edge(dim - 2, dim - 1)
         return tt
+
+    @staticmethod
+    def rand_ht(
+        indices: List[Index],
+        rank: int,
+        child_each_level: int = 2,
+        dtype: torch.dtype = torch.float64,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> "TensorNetwork":
+        """A random hierarchical Tucker tree over a k-ary dimension
+        split: nodes ``G<id>`` and bonds ``R_<parent>_<child>`` named as
+        in the JAX package, values uniform on [0, 1) on ``device``
+        (default: the card), drawn from ``generator`` where one is
+        given."""
+        ht = TensorNetwork()
+        device = resolve_device(device)
+
+        def rand(*shape):
+            return torch.rand(
+                shape, generator=generator, dtype=dtype, device=device
+            )
+
+        def build(pid: int, node_id: int, subset: List[Index], r: int) -> int:
+            if len(subset) == 1:
+                ind = subset[0]
+                ht.add_node(
+                    f"G{node_id}",
+                    Tensor(
+                        rand(r, ind.size), [Index(f"R_{pid}_{node_id}", r), ind]
+                    ),
+                )
+                return node_id + 1
+
+            groups = child_each_level
+            group_size = len(subset) // groups
+            last_size = len(subset) - (groups - 1) * group_size
+            next_id = node_id + 1
+
+            if pid == -1:
+                val = rand(*[r] * child_each_level)
+                my_indices: List[Index] = []
+            else:
+                val = rand(*[r] * (child_each_level + 1))
+                my_indices = [Index(f"R_{pid}_{node_id}", r)]
+
+            for i in range(groups - 1):
+                child_id = next_id
+                my_indices.append(Index(f"R_{node_id}_{child_id}", r))
+                next_id = build(
+                    node_id,
+                    next_id,
+                    subset[i * group_size : (i + 1) * group_size],
+                    r,
+                )
+                ht.add_edge(f"G{child_id}", f"G{node_id}")
+
+            child_id = next_id
+            my_indices.append(Index(f"R_{node_id}_{child_id}", r))
+            next_id = build(node_id, next_id, subset[-last_size:], r)
+            ht.add_edge(f"G{child_id}", f"G{node_id}")
+
+            ht.set_node_tensor(f"G{node_id}", Tensor(val, my_indices))
+            return next_id
+
+        build(-1, 0, indices, rank)
+        return ht
+
+    @staticmethod
+    def rand_tucker(
+        indices: List[Index],
+        rank: int = 1,
+        dtype: torch.dtype = torch.float64,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> "TensorNetwork":
+        """A random Tucker decomposition with uniform core rank: a
+        ``root`` core and one factor ``G<i>`` per index, values uniform
+        on [0, 1) on ``device`` (default: the card), drawn from
+        ``generator`` where one is given."""
+        device = resolve_device(device)
+
+        def rand(*shape):
+            return torch.rand(
+                shape, generator=generator, dtype=dtype, device=device
+            )
+
+        tucker = TensorNetwork()
+        root_inds = [Index(f"s_{i}", rank) for i in range(len(indices))]
+        tucker.add_node(
+            "root", Tensor(rand(*[rank] * len(indices)), root_inds)
+        )
+        for i, ind in enumerate(indices):
+            tucker.add_node(
+                f"G{i}", Tensor(rand(ind.size, rank), [ind, root_inds[i]])
+            )
+            tucker.add_edge(f"G{i}", "root")
+        return tucker
+
+    # -- cost --------------------------------------------------------------------------------------------
+
+    def cost(self) -> int:
+        """Total number of stored entries (sum of core sizes)."""
+        return sum(
+            int(np.prod([ix.size for ix in data["tensor"].indices]))
+            for _, data in self.network.nodes(data=True)
+        )
+
+    def __lt__(self, other: "TensorNetwork") -> bool:
+        return self.cost() < other.cost()
 
     # -- tree-aligned binary algebra --------------------------------------------------------------------
 

@@ -349,11 +349,13 @@ def test_constructors_honour_a_named_device():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter that imports the port and every module of it
-    has loaded no ``jax`` and no ``tensor_networks_tpu``."""
+    """A fresh interpreter that imports the port, its cross package and
+    every module of it has loaded no ``jax`` and no
+    ``tensor_networks_tpu``."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import tensor_networks_tpu_torch as t\n"
+        "import tensor_networks_tpu_torch.cross\n"
         "for m in pkgutil.walk_packages(t.__path__, t.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

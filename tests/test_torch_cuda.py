@@ -389,3 +389,96 @@ def test_round_methods_on_the_card_match_the_cpu(dev, method):
         y = cpu.contract().value
         assert x.dtype == torch.float64
         assert ((x - y).norm() / y.norm()).item() <= 1e-10
+
+
+def test_evaluate_dw_launches_the_f64_kernel_and_packs_once(dev, monkeypatch):
+    """``precision="dw"`` on an f32 chain on the card: H2's float64
+    instantiation, values within 1e-12 of an f64 plain evaluation of the
+    same cores, one f64 pack for repeated calls; the default precision
+    takes the f32 instantiation."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    inds = [Index(f"x{k}", 6) for k in range(5)]
+    a = TensorNetwork.rand_tt(inds, [7] * 4, dtype=torch.float32, generator=g)
+    pts = np.random.default_rng(2).integers(0, 6, (300, 5))
+    packs = []
+    real_pack = tpk.pack_ragged
+    monkeypatch.setattr(tpk, "pack_ragged",
+                        lambda *args: packs.append(args) or real_pack(*args))
+    by_dtype = dict(tev.tt_evaluate_cuda.launches_by_dtype)
+    got = [a.evaluate(inds, pts, precision="dw") for _ in range(3)]
+    assert tev.tt_evaluate_cuda.launches_by_dtype["f64"] == by_dtype["f64"] + 3
+    assert len(packs) == 1 and packs[0][1] == torch.float64
+    a.evaluate(inds, pts)
+    assert tev.tt_evaluate_cuda.launches_by_dtype["f32"] == by_dtype["f32"] + 1
+    ref = tev.tt_evaluate_plain(*_f64(tpk.pack(a)), torch.from_numpy(pts).to(dev))
+    ref = ref.cpu().numpy()
+    for x in got:
+        assert np.abs(x - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_packed_additions_on_the_card_match_the_cpu(dev):
+    """evaluate_ensemble (one H2 call for the ensemble), tt_evaluate_fast
+    (forward and gradient), evaluate_dw, add and norm_exact on CUDA
+    cores against the same calls on CPU cores, f64, 1e-10."""
+    g = torch.Generator().manual_seed(11)
+    cpu = [tpk.PackedTT(*_train(g, 5, 4, 6, torch.float64, "cpu")) for _ in range(3)]
+    card = [tpk.PackedTT(*(x.to(dev) for x in t)) for t in cpu]
+    pts = torch.randint(-1, 5, (3, 40, 5), generator=g)
+
+    def close(x, y, tol=1e-10):
+        x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+        assert (x - y).abs().max() <= tol * y.abs().max()
+
+    before = tev.tt_evaluate_cuda.launches
+    close(tpk.evaluate_ensemble(card, pts.to(dev)), tpk.evaluate_ensemble(cpu, pts))
+    assert tev.tt_evaluate_cuda.launches == before + 1
+    close(tpk.evaluate_dw(card[0], pts[0]), tpk.evaluate_dw(cpu[0], pts[0]))
+    close(tpk.norm_exact(tpk.add(*card)), tpk.norm_exact(tpk.add(*cpu)))
+    grads = []
+    for t in (card[0], cpu[0]):
+        cores = [x.clone().requires_grad_(True) for x in t]
+        tpk.tt_evaluate_fast(*cores, pts[0].to(t.first.device)).sum().backward()
+        grads.append([c.grad for c in cores])
+    for x, y in zip(*grads):
+        close(x, y)
+
+
+def test_maxvol_device_on_the_card(dev):
+    """maxvol_device on a CUDA tensor stays on the card and gives a
+    dominant (max|B| <= 1.05), interpolating submatrix whose volume is
+    within 1% of the host loop's."""
+    import importlib
+
+    mv = importlib.import_module("tensor_networks_tpu_torch.cross.maxvol")
+    a = np.linalg.qr(np.random.default_rng(4).standard_normal((768, 24)))[0]
+    rows, b = mv.maxvol_device(torch.from_numpy(a).to(dev))
+    assert rows.is_cuda and b.is_cuda
+    rows, b = rows.cpu().numpy(), b.cpu().numpy()
+    assert np.abs(b).max() <= 1.05 + 1e-8
+    assert np.abs(b @ a[rows] - a).max() <= 1e-10
+    host = abs(np.linalg.det(a[mv.maxvol(a)[0]]))
+    assert abs(abs(np.linalg.det(a[rows])) - host) <= 0.01 * host
+
+
+def test_cross_on_the_card(dev):
+    """TT cross (NORM check through the packed QR-sweep norm on the
+    card) and Tucker cross of Ackley built by the runners' default
+    device, to the reference suite's 1e-4 on the full grid."""
+    from tensor_networks_tpu_torch import cross
+
+    class Ackley(cross.CachedFunc):
+        def _run(self, args):
+            y1 = -20 * np.exp(-0.2 * np.sqrt(np.sum(args**2, axis=1) / args.shape[1]))
+            y2 = -np.exp(np.sum(np.cos(2 * np.pi * args), axis=1) / args.shape[1])
+            return y1 + y2 + 20 + np.exp(1.0)
+
+    inds = [Index(c, s, tuple(np.linspace(-32.768, 32.768, s)))
+            for c, s in (("i", 8), ("j", 10), ("k", 12), ("l", 20))]
+    grid = np.stack(np.meshgrid(*[range(i.size) for i in inds]), -1).reshape(-1, 4)
+    for runner in (cross.TTCrossRunner(), cross.TuckerCrossRunner()):
+        np.random.seed(4)
+        func = Ackley(inds)
+        net = runner.run(func, eps=1e-4)
+        assert all(net.value(n).is_cuda for n in net.network.nodes)
+        real, approx = func(grid), net.evaluate(func.indices, grid)
+        assert np.linalg.norm(real - approx) / np.linalg.norm(real) <= 1e-4
