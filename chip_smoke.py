@@ -37,12 +37,17 @@ five phases:
    evaluation kernel, kickrank 4, VALID_ERROR, max_iters 8, eps 1e-8),
    with the launch counters reset just before and read just after, its
    wall time split into fibers, target evaluation, pivots, check and
-   the rest, and the same cross on the CPU; the ``cross_host`` leg
-   (Ackley d=8, VALID_ERROR and NORM), HT and Tucker; the kernels at the
+   the rest, its error against the plain f64 evaluation on the CPU, the
+   f64 kernel held to that plain version on the target and on the
+   cross's largest fiber batch, and the same cross on the CPU; the leg
+   again at target rank 48 (kickrank 8), whose fibers cross the maxvol
+   gate and must take ``maxvol_device``; the ``cross_host`` leg (Ackley
+   d=8, VALID_ERROR and NORM), HT and Tucker; the kernels at the
    slice's new call shapes against their plain versions
    (``evaluate_ensemble``, ``tt_evaluate_fast`` and its gradient,
    ``evaluate_dw``, ``maxvol_device`` against the host loop); timings of
-   the f64 evaluation, the ensemble and maxvol.
+   the f64 evaluation (checked to 1e-12), the ensemble, and
+   ``maxvol_auto``'s host and card branches on each side of its gate.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 per-kernel results,
@@ -967,9 +972,14 @@ def _split_cross(engine, func, net, eps, sync):
     validation reference the target's evaluation alone, the pivot
     choice, the convergence check, and the rest (copies of the
     iterate, core installs, rank growth).  Returns (result, wall s,
-    {part: s}, [target batch sizes])."""
+    {part: s}, [target batch sizes], the largest target batch)."""
     parts = {"fibers": 0.0, "target evaluation": 0.0, "pivots": 0.0, "check": 0.0}
-    batches = []
+    batches, largest = [], [np.empty((0, 0))]
+
+    def keep(args):
+        batches.append(len(args[0]))
+        if len(args[0]) > len(largest[0]):
+            largest[0] = np.asarray(args[0])
 
     def timed(key, fn, note=None):
         def wrapper(*args):
@@ -984,26 +994,64 @@ def _split_cross(engine, func, net, eps, sync):
     engine._eval_fibers = timed("fibers", engine._eval_fibers)
     engine._pick = timed("pivots", engine._pick)
     engine._error = timed("check", engine._error)
-    func._run = timed("target evaluation", func._run,
-                      lambda args: batches.append(len(args[0])))
+    func._run = timed("target evaluation", func._run, keep)
     sync()
     t0 = time.perf_counter()
     res = engine.cross(net, eps=eps)
     sync()
     wall = time.perf_counter() - t0
     parts["rest"] = wall - parts["fibers"] - parts["pivots"] - parts["check"]
-    return res, wall, parts, batches
+    return res, wall, parts, batches, largest[0]
 
 
 def _rel_err(got, ref):
     return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
 
 
-def _cross_device_leg(ev, dev, target, t_inds, device):
+def _reset_evaluate_counts(ev):
+    ev.tt_evaluate_cuda.launches = 0
+    ev.tt_evaluate_cuda.launches_by_dtype = dict.fromkeys(
+        ev.tt_evaluate_cuda.launches_by_dtype, 0)
+    ev.group_tiles_cuda.launches = 0
+
+
+def _cross_target(rank, seed, dev):
+    """The ``cross_device`` target: a d=8, n=32 TT of ``rank``, f32 cores
+    scaled by 1/sqrt(rank), on ``dev``; with its copy on the CPU."""
+    from tensor_networks_tpu_torch import Index, TensorNetwork
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_inds = [Index(f"t{k}", CROSS_N) for k in range(CROSS_D)]
+    target = TensorNetwork.rand_tt(t_inds, [rank] * (CROSS_D - 1),
+                                   dtype=torch.float32, device=dev, generator=g)
+    for k in range(CROSS_D):
+        t = target.node_tensor(k)
+        t.update_val_size(t.value / math.sqrt(rank))
+    target_cpu = TensorNetwork.from_separated_dict(*target.to_separated_dict(),
+                                                   device="cpu")
+    return target, target_cpu, t_inds
+
+
+def _check_f64_evaluation(target, target_cpu, t_inds, pts, what):
+    """H2's float64 instantiation (the chain on the card, ``precision="dw"``)
+    against the plain float64 evaluation of the same cores on the CPU,
+    to 1e-12 of max|ref|; returns that ratio."""
+    got = target.evaluate(t_inds, pts, precision="dw")
+    ref = target_cpu.evaluate(t_inds, pts, precision="dw")
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    if not err <= 1e-12:
+        raise AssertionError(f"H2 f64 at {what}: {err:.3e} of max|ref| > 1e-12")
+    return err
+
+
+def _cross_device_leg(ev, target, t_inds, device, grid, real, kickrank=4, max_iters=8):
     """The JAX package's ``cross_device`` leg on ``device``: a
     FuncTensorNetwork target sampled in float64 (``precision="dw"``),
     kickrank 4, VALID_ERROR on 2000 points, max_iters 8, eps 1e-8, the
-    pivot generator seeded by ``np.random.seed(SEED)``."""
+    pivot generator seeded by ``np.random.seed(SEED)``.  The error is
+    measured against ``real``, the target's values at ``grid`` from the
+    plain float64 evaluation on the CPU.  The launch counts are read
+    just after the cross; the largest target batch is kept."""
     from tensor_networks_tpu_torch import TensorNetwork, cross
 
     func = cross.FuncTensorNetwork(t_inds, target, precision="dw")
@@ -1012,57 +1060,56 @@ def _cross_device_leg(ev, dev, target, t_inds, device):
                                 generator=gen)
     np.random.seed(SEED)
     engine = cross.CrossApproximation(func, cross.CrossConfig(
-        kickrank=4, convergence=cross.ConvergenceCheck.VALID_ERROR,
-        validation_size=2000, max_iters=8))
+        kickrank=kickrank, convergence=cross.ConvergenceCheck.VALID_ERROR,
+        validation_size=2000, max_iters=max_iters))
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    res, wall, parts, batches = _split_cross(engine, func, net, 1e-8, sync)
+    res, wall, parts, batches, largest = _split_cross(engine, func, net, 1e-8, sync)
     launches = {"evaluate": ev.tt_evaluate_cuda.launches,
                 "by_dtype": {k: v for k, v in ev.tt_evaluate_cuda.launches_by_dtype.items() if v},
                 "tiles": ev.group_tiles_cuda.launches}
-    grid = np.random.default_rng(11).integers(0, CROSS_N, (4096, CROSS_D))
-    real = target.evaluate(t_inds, grid, precision="dw")
     err_dw = _rel_err(res.net.evaluate(t_inds, grid, precision="dw"), real)
     return {"wall_s": wall, "evals": func.num_calls(), "ranks": res.net.ranks(),
-            "err_dw": err_dw, "parts": parts, "batches": batches, "net": res.net,
-            "grid": grid, "real": real, "sweeps": len(res.ranks_and_errors),
-            "launches": launches}
+            "err_dw": err_dw, "parts": parts, "batches": batches,
+            "largest_batch": largest.astype(int), "net": res.net,
+            "sweeps": len(res.ranks_and_errors), "launches": launches}
 
 
 def phase_cross(ev, dev):
     """Cross approximation on the card, with counts reset just before
-    the ``cross_device`` run and read just after; then the JAX package's
-    ``cross_host`` leg (VALID_ERROR and NORM), HT and Tucker."""
+    the ``cross_device`` run and read just after; the same cross on the
+    CPU; the leg above the maxvol gate (target rank 48), with its own
+    counts; then the JAX package's ``cross_host`` leg (VALID_ERROR and
+    NORM), HT and Tucker."""
     import copy
+    import importlib
 
     from tensor_networks_tpu_torch import Index, TensorNetwork, cross
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    t_inds = [Index(f"t{k}", CROSS_N) for k in range(CROSS_D)]
-    target = TensorNetwork.rand_tt(t_inds, [CROSS_R] * (CROSS_D - 1),
-                                   dtype=torch.float32, generator=g)
-    for k in range(CROSS_D):
-        t = target.node_tensor(k)
-        t.update_val_size(t.value / math.sqrt(CROSS_R))
+    mv = importlib.import_module("tensor_networks_tpu_torch.cross.maxvol")
+    target, target_cpu, t_inds = _cross_target(CROSS_R, SEED + 11, dev)
+    grid = np.random.default_rng(11).integers(0, CROSS_N, (4096, CROSS_D))
+    # the reference: the plain f64 evaluation on the CPU, not H2
+    real = target_cpu.evaluate(t_inds, grid, precision="dw")
+    f64_errs = {"target": _check_f64_evaluation(target, target_cpu, t_inds, grid,
+                                                "the target, 4096 points")}
 
     torch.cuda.synchronize()
-    ev.tt_evaluate_cuda.launches = 0
-    ev.tt_evaluate_cuda.launches_by_dtype = dict.fromkeys(
-        ev.tt_evaluate_cuda.launches_by_dtype, 0)
-    ev.group_tiles_cuda.launches = 0
-    card = _cross_device_leg(ev, dev, target, t_inds, dev)
+    _reset_evaluate_counts(ev)
+    card = _cross_device_leg(ev, target, t_inds, dev, grid, real)
     launches = card["launches"]  # read just after the cross
     if launches["by_dtype"].get("f64", 0) == 0 or launches["tiles"] == 0:
         raise AssertionError(f"the cross's fibers missed H2's f64 kernel: {launches}")
+    # H2 f64 on the cross's own largest fiber batch
+    f64_errs["largest fiber batch"] = _check_f64_evaluation(
+        target, target_cpu, t_inds, card["largest_batch"], "the largest fiber batch")
     # the model evaluated by a plain f32 evaluate (H2's f32 instantiation)
     net32 = copy.deepcopy(card["net"])
     for n in net32.network.nodes:
         net32.node_tensor(n).update_val_size(net32.value(n).float())
-    err32 = _rel_err(net32.evaluate(t_inds, card["grid"]), card["real"])
+    err32 = _rel_err(net32.evaluate(t_inds, grid), real)
     # the same cross on the CPU, the target copied there
-    target_cpu = TensorNetwork.from_separated_dict(*target.to_separated_dict(),
-                                                   device="cpu")
-    host = _cross_device_leg(ev, dev, target_cpu, t_inds, "cpu")
+    host = _cross_device_leg(ev, target_cpu, t_inds, "cpu", grid, real)
     for name, leg in (("card", card), ("cpu", host)):
         if not leg["err_dw"] <= 1e-6:
             raise AssertionError(f"cross_device on the {name}: error {leg['err_dw']:.3e} > 1e-6")
@@ -1071,8 +1118,10 @@ def phase_cross(ev, dev):
           f"(dw fibers, kickrank 4, VALID_ERROR 2000, max_iters 8, eps 1e-8): ok; card: "
           f"wall {card['wall_s']:.4f} s, {card['sweeps']} sweeps, {card['evals']} unique "
           f"evaluations, ranks {card['ranks']}, error at 4096 points {card['err_dw']:.3e} "
-          f"(f64) {err32:.3e} (f32 evaluate of the model); H2 launches {launches}; "
-          "wall split s: " + ", ".join(f"{k} {v:.4f}" for k, v in card["parts"].items())
+          f"(f64) {err32:.3e} (f32 evaluate of the model), against the plain f64 "
+          f"evaluation on the CPU; H2 launches {launches}; H2 f64 against that plain "
+          "version (max err / max|ref|): " + ", ".join(f"{k} {v:.3e}" for k, v in f64_errs.items())
+          + "; wall split s: " + ", ".join(f"{k} {v:.4f}" for k, v in card["parts"].items())
           + f"; largest target batch {fiber_b}; cpu: wall {host['wall_s']:.4f} s, "
           f"{host['evals']} unique evaluations, ranks {host['ranks']}, error "
           f"{host['err_dw']:.3e}, split s: "
@@ -1081,8 +1130,46 @@ def phase_cross(ev, dev):
         "wall_s": card["wall_s"], "evals": card["evals"], "sweeps": card["sweeps"],
         "ranks": card["ranks"], "err_f64": card["err_dw"], "err_f32_eval": err32,
         "launches": launches, "split_s": card["parts"], "fiber_batch": fiber_b,
+        "h2_f64_vs_plain": f64_errs,
         "cpu": {"wall_s": host["wall_s"], "evals": host["evals"],
                 "err_f64": host["err_dw"], "ranks": host["ranks"]}}}
+
+    # above the maxvol gate: target rank 48, so the fibers (32 r, r)
+    # reach 76,832 entries and take maxvol_device on the card
+    target48, target48_cpu, _ = _cross_target(48, SEED + 17, dev)
+    real48 = target48_cpu.evaluate(t_inds, grid, precision="dw")
+    sizes, real_device = [], mv.maxvol_device
+
+    def counted(a, *args):
+        sizes.append(a.numel())
+        return real_device(a, *args)
+
+    mv.maxvol_device = counted
+    try:
+        torch.cuda.synchronize()
+        _reset_evaluate_counts(ev)
+        big = _cross_device_leg(ev, target48, t_inds, dev, grid, real48,
+                                kickrank=8, max_iters=10)
+    finally:
+        mv.maxvol_device = real_device
+    if (not big["err_dw"] <= 1e-6 or not sizes
+            or big["launches"]["by_dtype"].get("f64", 0) == 0):
+        raise AssertionError(f"cross_device above the gate: error {big['err_dw']:.3e}, "
+                             f"{len(sizes)} maxvol_device calls, launches {big['launches']}")
+    gate_err = _check_f64_evaluation(target48, target48_cpu, t_inds, big["largest_batch"],
+                                     "the rank-48 cross's largest fiber batch")
+    out["cross_device_gate"] = {
+        "wall_s": big["wall_s"], "evals": big["evals"], "sweeps": big["sweeps"],
+        "ranks": big["ranks"], "err_f64": big["err_dw"], "launches": big["launches"],
+        "split_s": big["parts"], "maxvol_device_calls": len(sizes),
+        "maxvol_device_entries": [min(sizes), max(sizes)], "h2_f64_vs_plain": gate_err}
+    print(f"  cross_device above the maxvol gate ({mv._DEVICE_SIZE_THRESHOLD} entries): "
+          f"target rank 48, kickrank 8, max_iters 10: ok, wall {big['wall_s']:.4f} s, "
+          f"{big['sweeps']} sweeps, {big['evals']} unique evaluations, ranks {big['ranks']}, "
+          f"error {big['err_dw']:.3e}; {len(sizes)} fibers through maxvol_device "
+          f"({min(sizes)}-{max(sizes)} entries); H2 launches {big['launches']}; H2 f64 on the "
+          f"largest fiber batch {gate_err:.3e} of max|ref|; split s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in big["parts"].items()))
 
     # cross_host: Ackley d=8 on linspace(-2, 2, 16), the network on the card
     Ackley = _ackley(cross)
@@ -1095,7 +1182,8 @@ def phase_cross(ev, dev):
         net = TensorNetwork.rand_tt(c_inds, [1] * 7)
         engine = cross.CrossApproximation(func, cross.CrossConfig(
             kickrank=2, convergence=getattr(cross.ConvergenceCheck, check), **extra))
-        res, wall, parts, _ = _split_cross(engine, func, net, 1e-4, torch.cuda.synchronize)
+        res, wall, parts, _, _ = _split_cross(engine, func, net, 1e-4,
+                                              torch.cuda.synchronize)
         err = _rel_err(res.net.evaluate(func.indices, grid), func(grid))
         if not err <= 1e-4 or not all(res.net.value(k).is_cuda for k in range(8)):
             raise AssertionError(f"cross_host {check}: error {err:.3e} > 1e-4, or off the card")
@@ -1256,6 +1344,9 @@ def phase_cross_timings(ev, dev, pa, idx, target, fiber_b, mats):
         rows[key] = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
                      "max_abs_err": err, "rel_err": err / ref.abs().max().item(),
                      "bound_ms": bound, "bound_by": by}
+        if not rows[key]["rel_err"] <= 1e-12:
+            raise AssertionError(f"H2 f64 {key}: {rows[key]['rel_err']:.3e} of max|ref| "
+                                 "> 1e-12 against the plain version")
         b, d = pts.shape
         print(f"  H2 f64 d={d} n={cores[0].shape[0]} r={cores[0].shape[1]} B={b}: kernel "
               f"{rows[key]['ms']:.4f} ms, plain {rows[key]['plain_ms']:.4f} ms, bound "
@@ -1288,25 +1379,47 @@ def phase_cross_timings(ev, dev, pa, idx, target, fiber_b, mats):
               f"{r_['separate_ms']:.4f} ms, plain (folded) {r_['plain_ms']:.4f} ms, bound "
               f"{bound:.4f} ms by {by} ({100 * bound / r_['ms']:.1f}%); runs "
               + ",".join(f"{x:.4f}" for x in runs))
-    # beside the checked sizes, the cross's fiber family (32 r, r) around
-    # the gate, to place it
+    # maxvol_auto itself, from a host array, on each side of the gate:
+    # its host branch and its card branch (copies included) at the
+    # checked sizes and at the cross's fiber family (32 r, r)
     rng = np.random.default_rng(SEED + 16)
     sizes = dict(mats)
-    for r in (32, 40, 45, 64):
+    for r in (28, 32, 36, 40, 45, 49, 64):
         sizes[(32 * r, r)] = np.linalg.qr(rng.standard_normal((32 * r, r)))[0]
+    gate = mv._DEVICE_SIZE_THRESHOLD
+
+    def auto_ms(a, threshold):
+        mv._DEVICE_SIZE_THRESHOLD = threshold
+        try:
+            return _host_ms(lambda: mv.maxvol_auto(a, device=dev), 1)[0]
+        finally:
+            mv._DEVICE_SIZE_THRESHOLD = gate
+
     mv_rows = {}
-    for (n, r), a in sorted(sizes.items()):
-        reps = 3 if n * r < 1e6 else 1
-        host_ms, _ = _host_ms(lambda: mv.maxvol(a), reps)
+    for (n, r), a in sorted(sizes.items(), key=lambda kv: kv[1].size):
+        auto_ms(a, 0)
+        # turns host, card, card, host; medians
+        runs = {"host": [], "card": []}
+        for _ in range(4 if n * r < 1e6 else 1):
+            for branch in ("host", "card", "card", "host"):
+                runs[branch].append(auto_ms(a, a.size + 1 if branch == "host" else 0))
+        host_ms, card_ms = (float(np.median(runs[k])) for k in ("host", "card"))
         a_dev = torch.from_numpy(a).to(dev)
-        mv.maxvol_device(a_dev)
-        dev_ms, _ = _host_ms(lambda: mv.maxvol_device(a_dev), 3)
-        auto_ms, _ = _host_ms(lambda: mv.maxvol_auto(a, device=dev), 3)
-        mv_rows[f"{n}x{r}"] = {"host_ms": host_ms, "device_ms": dev_ms, "auto_ms": auto_ms}
-        print(f"  maxvol ({n}, {r}) f64: host {host_ms:.3f} ms, maxvol_device on the card "
-              f"{dev_ms:.3f} ms (from a host array, copies included: {auto_ms:.3f} ms through "
-              f"maxvol_auto, gate {mv._DEVICE_SIZE_THRESHOLD} entries)")
-    rows["maxvol"] = mv_rows
+        dev_ms, _ = _host_ms(lambda: mv.maxvol_device(a_dev), 5)
+        mv_rows[f"{n}x{r}"] = {"entries": a.size, "host_ms": host_ms, "card_ms": card_ms,
+                               "device_ms": dev_ms}
+        print(f"  maxvol_auto ({n}, {r}) = {a.size} entries, f64 host array: host branch "
+              f"{host_ms:.3f} ms, card branch {card_ms:.3f} ms with its copies, medians "
+              f"of {len(runs['host'])} in turns (maxvol_device on a card tensor "
+              f"{dev_ms:.3f} ms)")
+    # the smallest size from which the card branch wins at every larger size
+    wins = [v["entries"] for v in mv_rows.values() if v["card_ms"] < v["host_ms"]]
+    by_run = next((v["entries"] for v in mv_rows.values()
+                   if all(w["card_ms"] < w["host_ms"] for w in mv_rows.values()
+                          if w["entries"] >= v["entries"])), None)
+    print(f"  maxvol gate: {gate} entries in the code; by this run's timings "
+          f"{by_run} (the card branch wins at {len(wins)} of {len(mv_rows)} sizes)")
+    rows["maxvol"] = {"gate": gate, "gate_by_run": by_run, "sizes": mv_rows}
     return rows
 
 

@@ -27,11 +27,12 @@ import numpy as np
 import torch
 
 #: entries; from this size up, fibers of a network on the card go to
-#: :func:`maxvol_device`.  Set from the host-versus-card timings of
-#: ``chip_smoke.py`` phase 5 on an H100 (PERF.md section 6): on the
-#: cross's fiber family (32 r, r), the host loop wins at (768, 24) and
-#: the card from (1024, 32) up.
-_DEVICE_SIZE_THRESHOLD = 32 * 1024
+#: :func:`maxvol_device`.  Set from ``chip_smoke.py`` phase 5's timings
+#: of :func:`maxvol_auto` on an H100, host copies included (PERF.md
+#: section 6): on the cross's fiber family (32 r, r), the host branch
+#: wins up to (1152, 36) = 41,472 entries and the card branch from
+#: (1280, 40) = 51,200 up.
+_DEVICE_SIZE_THRESHOLD = 48 * 1024
 
 #: iterations between two reads of the device loop's stop flag; the
 #: iterations after the stop are masked no-ops

@@ -28,6 +28,10 @@ from tensor_networks_tpu_torch import planner as tplanner
 from tensor_networks_tpu_torch.graph import Graph as TGraph
 from tensor_networks_tpu.graph import Graph as JGraph
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 RTOL = 1e-12
 
 

@@ -24,6 +24,10 @@ from tensor_networks_tpu import cross as jcross
 import tensor_networks_tpu_torch as ttn
 from tensor_networks_tpu_torch import cross as tcross
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 # the packages export a function of the module's name: take the modules
 jmaxvol = importlib.import_module("tensor_networks_tpu.cross.maxvol")
 tmaxvol = importlib.import_module("tensor_networks_tpu_torch.cross.maxvol")
@@ -103,6 +107,36 @@ def test_tt_cross_picks_the_pivots_of_jax(which, algo, convergence):
     # the errors are functions of the shared cores, down to roundoff
     for (_, e1), (_, e2) in list(zip(jres.ranks_and_errors, tres.ranks_and_errors))[1:]:
         assert abs(e1 - e2) <= 1e-8 * e1 + 1e-14
+
+
+def test_explicit_rng_reproduces_the_global_seed_run():
+    """``CrossApproximation(rng=...)``: a generator seeded with the draw
+    the engine would take from ``np.random.seed(5)`` gives that run's
+    pivots and cores, takes no global draw, and two runs with equal
+    generators agree."""
+    cls, sizes = _function_classes(tcross.CachedFunc)["rank_two"]
+
+    def run(rng=None):
+        func = cls([ttn.Index(name, size) for name, size in sizes])
+        net = ttn.TensorNetwork.rand_tt(func.indices, [1] * 3, device="cpu")
+        if rng is None:
+            np.random.seed(5)
+        config = tcross.CrossConfig(kickrank=2, max_iters=3, validation_size=200)
+        state = np.random.get_state()[1].copy()
+        res = tcross.CrossApproximation(func, config, rng=rng).cross(net, eps=0.0)
+        assert rng is None or np.array_equal(np.random.get_state()[1], state)
+        return res
+
+    np.random.seed(5)
+    seed = np.random.randint(2**31)
+    np.random.seed(123)
+    runs = [run(), run(np.random.default_rng(seed)), run(np.random.default_rng(seed))]
+    for res in runs[1:]:
+        for a, b in zip(runs[0].dim_tree.preorder(), res.dim_tree.preorder()):
+            assert np.array_equal(a.up_info.vals, b.up_info.vals)
+            assert np.array_equal(a.down_info.vals, b.down_info.vals)
+        for node in runs[0].net.network.nodes:
+            assert torch.equal(res.net.value(node), runs[0].net.value(node))
 
 
 def test_norm_check_promotes_and_matches_the_graph_norm():

@@ -21,6 +21,10 @@ from tensor_networks_tpu.kernels.ragged_eval import tt_evaluate_ragged
 from tensor_networks_tpu.parallel.sharded import tt_evaluate_batched
 from tensor_networks_tpu_torch.kernels import evaluate as tev
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 
 def _train(rng, d, n, r, dtype):
     first = rng.standard_normal((n, r))

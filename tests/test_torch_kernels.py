@@ -28,6 +28,10 @@ from tensor_networks_tpu_torch.kernels import evaluate as tev
 from tensor_networks_tpu_torch.kernels import zipper as tzp
 from tensor_networks_tpu_torch.ops import packed as tpk
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 
 def _train(rng, d, n, r, dtype):
     """(first, mids, last) as NumPy arrays; mids scaled to keep values O(1)."""

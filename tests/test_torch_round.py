@@ -26,6 +26,10 @@ from tensor_networks_tpu.ops import tt_sum
 import tensor_networks_tpu_torch as ttn
 from tensor_networks_tpu_torch.ops import fast as tfast
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 METHODS = ("gram", "cholqr2", "twosided", "prefix")
 
 

@@ -26,6 +26,10 @@ import tensor_networks_tpu_torch as ttn
 from tensor_networks_tpu_torch.ops import fast as tfast
 from tensor_networks_tpu_torch.ops import packed as tpk
 
+# The suite runs in several worker processes on the CPU: torch's own
+# thread pool would spin on the cores the other workers need.
+torch.set_num_threads(1)
+
 D, N, R = 6, 5, 4
 
 
