@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-five phases:
+six phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -47,10 +47,24 @@ five phases:
    (``evaluate_ensemble``, ``tt_evaluate_fast`` and its gradient,
    ``evaluate_dw``, ``maxvol_device`` against the host loop); timings of
    the f64 evaluation (checked to 1e-12), the ensemble, and
-   ``maxvol_auto``'s host and card branches on each side of its gate.
+   ``maxvol_auto``'s host and card branches on each side of its gate;
+6. the four TT rounding families and the graph route at full width, with
+   the launch counters reset just before and read just after:
+   ``tt_svd_round``, ``TensorNetwork.round`` (orthonormalize, then per
+   bond svd, merge and qr), ``tt_gramsvd_round``, ``tt_sum_gramsvd_round``,
+   ``tt_randomized_round``, ``tt_sum_randomized_round`` and
+   ``tt_rand_precond_svd_round`` on the main path's ``a + a`` (and
+   ``[a, a, a]``), in f32 at eps 1e-3 and in f64 at 1e-10: kept ranks,
+   the error at the 8192 points through the evaluation kernel against
+   the plain f64 evaluation on the CPU, the error norm through the inner
+   product kernel, wall, device-busy time, kernels and host syncs; the
+   Gram families again above their floor; a summed HT (16 modes of 32,
+   rank 32, f64) rounded from its root, its structure hash checked; and
+   the inner product kernel's f64 instantiation timed at the main shape
+   and at the error norms' (200, 100).
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
-per-kernel results,
+phase 6's, one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -60,6 +74,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -70,6 +85,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 1234
 D, N, R, B = 50, 32, 100, 8192
@@ -1423,6 +1439,320 @@ def phase_cross_timings(ev, dev, pa, idx, target, fiber_b, mats):
     return rows
 
 
+# -- phase 6: the TT rounding families and the graph route on the card -------
+
+#: the Gram families' relative floor, 4 sqrt(mach eps) (their warning in
+#: tt_round_fixed): 1.4e-3 in f32, 6e-8 in f64, above phase 6's eps
+GRAM_FLOOR = {torch.float32: 4 * math.sqrt(torch.finfo(torch.float32).eps),
+              torch.float64: 4 * math.sqrt(torch.finfo(torch.float64).eps)}
+#: an eps above that floor at which the Gram families are held to the
+#: structural ranks
+GRAM_EPS = {torch.float32: 1e-2, torch.float64: 1e-6}
+
+
+def _chain_ranks(net):
+    from tensor_networks_tpu_torch.ops.packed import chain_cores
+
+    got = chain_cores(net)
+    if got is None:
+        raise AssertionError("the rounded network is not a chain with one mode per core")
+    return [c.shape[-1] for c in got[1][:-1]]
+
+
+def _split_merged_core(net, inds):
+    """The graph route's orthonormalize hands the last core up whole (its
+    one free leg, n, is no larger than its bond), so the rounded train
+    ends in a core with two modes.  Split it back with the network's own
+    exact QR so the train is a chain again (the new bond is n)."""
+    free = set(net.free_indices())
+    two = [nd for nd in net.network.nodes
+           if sum(ix in free for ix in net.node_tensor(nd).indices) == 2]
+    if len(two) != 1:
+        raise AssertionError(f"expected one core with two modes, found {two}")
+    t = net.node_tensor(two[0])
+    later = max((ix for ix in t.indices if ix in free), key=inds.index)
+    net.qr(two[0], [i for i, ix in enumerate(t.indices) if ix != later])
+    return net
+
+
+def _pack_chain(net, r):
+    """The chain's cores zero-padded to the uniform rank ``r`` (inert for
+    inner products): the error norms then run at the (2r, r) shapes."""
+    from tensor_networks_tpu_torch.ops.packed import PackedTT, chain_cores
+
+    _, cores, _, _ = chain_cores(net)
+    first = F.pad(cores[0], (0, r - cores[0].shape[1]))
+    mids = torch.stack([F.pad(c, (0, r - c.shape[2], 0, 0, 0, r - c.shape[0]))
+                        for c in cores[1:-1]])
+    last = F.pad(cores[-1], (0, 0, 0, r - cores[-1].shape[0]))
+    return PackedTT(first.contiguous(), mids.contiguous(), last.contiguous())
+
+
+def _double(packed, p):
+    return packed.PackedTT(*(c.double() for c in p))
+
+
+def _err_norm(packed, px, py, nx2):
+    """|x - y| / |x| = sqrt(|x|^2 - 2<x, y> + |y|^2) / |x| through H1."""
+    xy = packed.inner(px, py).item()
+    yy = packed.inner(py, py).item()
+    return math.sqrt(max(nx2 - 2 * xy + yy, 0.0) / nx2)
+
+
+def _cost(call, reps=5):
+    """Wall ms (median of ``reps`` synchronised calls; the caller warmed
+    up), one call's device-busy ms, kernels and largest kernels
+    (torch.profiler), and one call's host syncs."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    busy, kernels, top = _device_profile(call)
+    syncs, _ = _host_syncs(call)
+    return {"wall_ms": float(np.median(runs)), "runs_ms": runs, "busy_ms": busy,
+            "kernels": kernels, "syncs": syncs, "top": top}
+
+
+def _round_leg(tnt, packed, a, inds, idx_np, ref_cpu, dtype, eps):
+    """The seven calls on ``a + a`` (and ``[a, a, a]``) in ``dtype``."""
+    import warnings
+
+    a = a.__deepcopy__({})
+    for k in range(D):
+        a.node_tensor(k).update_val_size(a.value(k).to(dtype))
+    x = a + a
+    x3 = tnt.tt_sum([a, a, a])
+    parts = [a, a, a]
+    want = [N] + [R] * (D - 3) + [N]
+    bound = [N] + [R + 10] * (D - 3) + [N]
+    x_ranks = _chain_ranks(x)
+    refs = {False: (x, _pack_chain(x, 2 * R), 2 * ref_cpu),
+            True: (x3, _pack_chain(x3, 3 * R), 3 * ref_cpu)}
+    norms2 = {}
+    for is_sum, (_, px, _) in refs.items():
+        p64 = _double(packed, px)
+        norms2[is_sum] = {dtype: packed.inner(px, px).item(),
+                          torch.float64: packed.inner(p64, p64).item()}
+    delta = eps * math.sqrt(norms2[False][dtype])
+
+    def graph_round():
+        y = copy.deepcopy(x)
+        y.round(0, delta)
+        return y
+
+    families = (  # (name, one call, whether it rounds the three-term sum)
+        ("tt_svd_round", lambda: tnt.tt_svd_round(copy.deepcopy(x), eps), False),
+        ("TensorNetwork.round", graph_round, False),
+        ("tt_gramsvd_round", lambda: tnt.tt_gramsvd_round(copy.deepcopy(x), eps), False),
+        ("tt_sum_gramsvd_round", lambda: tnt.tt_sum_gramsvd_round(parts, eps), True),
+        ("tt_randomized_round", lambda: tnt.tt_randomized_round(x, want), False),
+        ("tt_sum_randomized_round", lambda: tnt.tt_sum_randomized_round(parts, want), True),
+        ("tt_rand_precond_svd_round",
+         lambda: tnt.tt_rand_precond_svd_round(x, eps, bound), False),
+    )
+    # sqrt(|x|^2 - 2<x, y> + |y|^2) cancels: a relative error below
+    # ~sqrt(4 d u) of |x| is lost in the inner products' roundoff
+    floor = {dt: math.sqrt(4 * D * torch.finfo(dt).eps) for dt in (dtype, torch.float64)}
+    bar = 5e-3 if dtype == torch.float32 else 1e-10
+    rows = {}
+    for name, call, is_sum in families:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            y = call()
+            call()
+        for w in {str(w.message) for w in rec}:
+            print(f"  {name} {dtype} warns: {w}")
+            if "noise floor" in w:
+                raise AssertionError(f"{name} at eps {eps:g} in {dtype} is below its "
+                                     f"noise floor: {w}")
+        if name == "TensorNetwork.round":
+            merged = len(y.network.nodes)
+            _split_merged_core(y, inds)
+            if merged != D - 1:
+                raise AssertionError(f"the graph route left {merged} cores, want {D - 1}")
+        ranks = _chain_ranks(y)
+        if "gram" in name:
+            # below the Gram families' floor: ghost directions on the end
+            # bonds, up to the sum's ranks (checked at the structural
+            # ranks above the floor below)
+            ok = all(w <= r <= xr for w, r, xr in zip(want, ranks, x_ranks))
+        else:
+            ok = ranks == want
+        if not ok:
+            raise AssertionError(f"{name} {dtype} kept ranks {ranks}, want {want}")
+        _, px, ref = refs[is_sum]
+        got = y.evaluate(inds, idx_np)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if got.shape != ref.shape or not np.all(np.isfinite(got)) or not err <= bar:
+            raise AssertionError(f"{name} {dtype}: max err / max|ref| = {err:.3e} > {bar}")
+        py = _pack_chain(y, max(ranks))
+        en = _err_norm(packed, px, py, norms2[is_sum][dtype])
+        en64 = (_err_norm(packed, _double(packed, px), _double(packed, py),
+                          norms2[is_sum][torch.float64])
+                if dtype != torch.float64 else en)
+        # the error contract |x - y| <= eps |x|, or the pointwise bar where
+        # the dtype's own roundoff sets the error, above the norms' floor
+        for got_n, dt in ((en, dtype), (en64, torch.float64)):
+            if not got_n <= max(eps, bar) + floor[dt]:
+                raise AssertionError(f"{name} {dtype}: H1 error norm {got_n:.3e} in {dt} "
+                                     f"above {max(eps, bar):g} + {floor[dt]:.1e}")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            cost = _cost(call)
+        rows[name] = {"ranks": f"{ranks[0]},{ranks[1]}x{len(ranks) - 2},{ranks[-1]}"
+                      if len(set(ranks[1:-1])) == 1 else ranks,
+                      "err": err, "err_norm": en, "err_norm_f64": en64, **cost}
+        print(f"  {name} {str(dtype)[6:]}: ranks {rows[name]['ranks']}, max err "
+              f"{err:.3e} of max|ref|, H1 error norm {en:.3e} ({en64:.3e} in f64), wall "
+              f"{cost['wall_ms']:.3f} ms (median of 5; runs "
+              + ",".join(f"{t:.3f}" for t in cost["runs_ms"])
+              + f"), device busy {cost['busy_ms']:.3f} ms over {cost['kernels']} kernels, "
+              f"{cost['syncs']} host syncs; largest: "
+              + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in cost["top"]))
+    # the Gram families above their floor: the structural ranks
+    geps = GRAM_EPS[dtype]
+    for name, y in (("tt_gramsvd_round", tnt.tt_gramsvd_round(copy.deepcopy(x), geps)),
+                    ("tt_sum_gramsvd_round", tnt.tt_sum_gramsvd_round(parts, geps))):
+        ranks = _chain_ranks(y)
+        ref = refs["sum" in name][2]
+        err = float(np.abs(y.evaluate(inds, idx_np) - ref).max() / np.abs(ref).max())
+        if ranks != want or not err <= bar:
+            raise AssertionError(f"{name} {dtype} at eps {geps:g}: ranks {ranks}, "
+                                 f"err {err:.3e}")
+        rows[name]["above_floor"] = {"eps": geps, "err": err}
+        print(f"  {name} {str(dtype)[6:]} at eps {geps:g} (above its floor "
+              f"{GRAM_FLOOR[dtype]:.1e}): structural ranks, max err {err:.3e}")
+    return rows
+
+
+def _ht_leg(tnt, dev):
+    """rand_ht over 16 indices of size 32 at rank 32 in f64, plus itself,
+    rounded by TensorNetwork.round from its root at eps 1e-10."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    inds = [tnt.Index(f"h{k}", 32) for k in range(16)]
+    ht = tnt.TensorNetwork.rand_ht(inds, 32, dtype=torch.float64, device=dev, generator=g)
+    s = ht + ht
+    if s.canonical_structure() != ht.canonical_structure():
+        raise AssertionError("ht + ht changed the tree's structure")
+    # orthonormalize hands each leaf (one free leg of 32, no larger than its
+    # bond of 64) up to its parent whole: the rounded tree is the sum with
+    # every leaf merged into its parent
+    folded = copy.deepcopy(s)
+    for leaf in [n for n in folded.network.nodes if len(folded.network.neighbors(n)) == 1]:
+        folded.merge(folded.network.neighbors(leaf)[0], leaf, compute_data=False)
+    delta = 1e-10 * s.norm()
+
+    def call():
+        y = copy.deepcopy(s)
+        y.round("G0", delta)
+        return y
+
+    y = call()
+    if y.canonical_structure() != folded.canonical_structure():
+        raise AssertionError("round changed the HT's structure beyond folding its leaves")
+    pts = np.random.default_rng(SEED + 22).integers(0, 32, (B, 16))
+    ht_cpu = tnt.TensorNetwork.from_separated_dict(*ht.to_separated_dict(), device="cpu")
+    ref = 2 * ht_cpu.evaluate(inds, pts)
+    got = y.evaluate(inds, pts)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    # the budget is norm-wise, 1e-10 |s|, and this tree has real directions
+    # that small (uniform positive cores): pointwise, a few times that
+    if not (np.all(np.isfinite(got)) and err <= 1e-9):
+        raise AssertionError(f"HT round: max err / max|ref| = {err:.3e} > 1e-9")
+    call()
+    row = {"nodes": [len(s.network.nodes), len(y.network.nodes)],
+           "ranks": sorted(set(y.ranks())), "err": err, **_cost(call, 3)}
+    print(f"  HT d=16 n=32 r=32 f64, ht + ht rounded from its root at 1e-10: "
+          f"{row['nodes'][0]} nodes to {row['nodes'][1]} (leaves folded; structure "
+          f"hash as predicted), ranks {row['ranks']}, max err {err:.3e} of max|ref| "
+          f"(general evaluator, against the plain f64 evaluation on the CPU), wall "
+          f"{row['wall_ms']:.3f} ms (median of 3), device busy {row['busy_ms']:.3f} ms "
+          f"over {row['kernels']} kernels, {row['syncs']} host syncs; largest: "
+          + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in row["top"]))
+    return row
+
+
+def phase_rounding_families(zp, ev, a, inds, idx_np, dev):
+    """The four TT rounding families and the graph route at full width:
+    ``a + a`` of the main path's train (d=50, n=32, r=100) and the
+    three-term sum, in f32 at eps 1e-3 and in f64 at 1e-10 (the f64 leg
+    on the same cores, upcast), then the HT leg.  Each call's kept ranks,
+    pointwise error through H2 at the main path's 8192 points against the
+    plain f64 evaluation of a on the CPU, error norm through H1, wall,
+    device-busy time, kernels and host syncs.  The kernels' launch counts
+    are reset just before and read just after."""
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import packed
+
+    cpu = [c.double().cpu() for c in stack(packed.pack(a))]
+    ref_cpu = ev.tt_evaluate_plain(*cpu, torch.from_numpy(idx_np)).numpy()
+    print(f"phase 6 rounding families, a + a and a + a + a, d={D} n={N} r={R}, "
+          f"{len(idx_np)} points:")
+    torch.cuda.synchronize()
+    zp.tt_inner_cuda.launches = 0
+    zp.tt_inner_chain_cuda.launches = 0
+    _reset_evaluate_counts(ev)
+    out = {}
+    for dtype, eps in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
+        out[str(dtype)[6:]] = _round_leg(tnt, packed, a, inds, idx_np, ref_cpu, dtype, eps)
+    out["ht"] = _ht_leg(tnt, dev)
+    torch.cuda.synchronize()
+    launches = {"zipper": zp.tt_inner_cuda.launches,
+                "chain": zp.tt_inner_chain_cuda.launches,
+                "evaluate": ev.tt_evaluate_cuda.launches,
+                "tiles": ev.group_tiles_cuda.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"phase 6 missed a kernel: launches {launches}")
+    print(f"  phase 6 launches: {launches}")
+    line = {"launches": launches, "ht": {k: out["ht"][k] for k in ("nodes", "err", "wall_ms",
+                                                                    "busy_ms", "syncs")}}
+    for key in ("float32", "float64"):
+        line[key] = {name: [_sig(r["wall_ms"]), _sig(r["busy_ms"]), r["kernels"], r["syncs"],
+                            _sig(r["err"]), _sig(r["err_norm"])]
+                     for name, r in out[key].items()}
+    line["columns"] = ["wall_ms", "busy_ms", "kernels", "syncs", "err", "err_norm"]
+    print(json.dumps({"rounding_families": _sig(line)}, separators=(",", ":")))
+    return out, launches
+
+
+def phase_inner_f64_timings(zp, pa, pb, dev):
+    """H1's float64 instantiation at the main shape (the fused route) and
+    at phase 6's (200, 100) error-norm shape (the chain), turns plain,
+    kernel, kernel, plain.  Bounds: float64 operations over the FP64
+    tensor-core peak (67 TFLOP/s), the FMA rate (34 TFLOP/s) beside."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows = {}
+    shapes = (("f64", _f64(*stack(pa)), _f64(*stack(pb))),
+              ("f64_err_norm", list(_train(g, D, N, 2 * R, 1 / math.sqrt(N * 2 * R),
+                                           dtype=torch.float64)),
+               list(_train(g, D, N, R, 1 / math.sqrt(N * R), dtype=torch.float64))))
+    for key, a, b in shapes:
+        k = lambda: zp.tt_inner_cuda(*a, *b)  # noqa: E731
+        p = lambda: zp.tt_inner_plain(*a, *b)  # noqa: E731
+        runs = [_time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)]
+        ref = p().item()
+        err = abs(k().item() - ref)
+        bound, by = _inner_bound(a, b)
+        fma_ms = bound * FP32_FLOP_PER_S / FP64_FMA_FLOP_PER_S if by == "operations" else bound
+        rel = err / math.sqrt(abs(zp.tt_inner_plain(*a, *a).item() * zp.tt_inner_plain(*b, *b).item()))
+        if not rel <= 1e-12:
+            raise AssertionError(f"H1 f64 {key}: {rel:.3e} of |a||b| against the plain version")
+        route = "fused" if zp.takes_fused_route(a[0].shape[1], b[0].shape[1]) else "chain"
+        rows[key] = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
+                     "max_abs_err": err, "rel_err": rel, "bound_ms": bound, "bound_by": by,
+                     "fma_bound_ms": fma_ms, "route": route}
+        print(f"  H1 f64 d={D} n={N} (r_a, r_b) = ({a[0].shape[1]}, {b[0].shape[1]}), "
+              f"{route} route: kernel {rows[key]['ms']:.4f} ms, plain "
+              f"{rows[key]['plain_ms']:.4f} ms, bound {bound:.4f} ms by {by} at 67 TFLOP/s "
+              f"({100 * bound / rows[key]['ms']:.1f}% of it reached; {fma_ms:.4f} ms at the "
+              f"34 TFLOP/s FMA rate), err {rel:.2e} of |a||b|; runs "
+              + ",".join(f"{x:.4f}" for x in runs))
+    return rows
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -1495,29 +1825,37 @@ def main() -> int:
     for key in ("f64", "f64_cross"):
         times["evaluate"]["by_dtype"][key] = cross_times[key]
     times["evaluate"]["ensemble"] = {k: cross_times[f"ensemble_{k}"] for k in ("f32", "f64")}
+    _, round_launches = phase_rounding_families(zp, ev, *main_train[:3], dev)
+    inner64 = phase_inner_f64_timings(zp, pa, pb, dev)
+    times["inner"]["by_dtype"]["f64"] = inner64["f64"]
+    times["chain"]["by_dtype"]["f64_err_norm"] = inner64["f64_err_norm"]
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
                      ":229 tt_inner_pallas_fused",
-         "launches": launches["zipper"], **_kernel_numbers(times["inner"])},
+         "launches": launches["zipper"], **_kernel_numbers(times["inner"]),
+         "launches_rounding": round_launches["zipper"]},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
                      ":229 tt_inner_pallas_fused, above rank 128",
-         "launches": launches["chain"], **_kernel_numbers(times["chain"])},
+         "launches": launches["chain"], **_kernel_numbers(times["chain"]),
+         "launches_rounding": round_launches["chain"]},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
                      "tensor_networks_tpu/kernels/ragged_eval.py:107 tt_evaluate_ragged",
          "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"]),
-         "launches_cross": cross_launches["by_dtype"]},
+         "launches_cross": cross_launches["by_dtype"],
+         "launches_rounding": round_launches["evaluate"]},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
          "launches": launches["tiles"], **_kernel_numbers(times["tiles"]),
-         "launches_cross": cross_launches["tiles"]},
+         "launches_cross": cross_launches["tiles"],
+         "launches_rounding": round_launches["tiles"]},
     ]
     print(json.dumps({"kernels": [_sig(k) for k in kernels]}, separators=(",", ":")))
     print(card)

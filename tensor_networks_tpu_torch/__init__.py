@@ -2,8 +2,10 @@
 
 The same named-index tensor networks as the JAX package, written in
 PyTorch for one NVIDIA H100: an edge-aware cached contraction planner,
-uniform-train fast paths (zipper inner product, fixed-rank rounding
-sweep), the packed device TT algebra and cross approximation
+the graph rewrites (svd, qr, merge, orthonormalize, round), the TT
+constructors and the four TT rounding families, uniform-train fast
+paths (zipper inner product, fixed-rank rounding sweep), the packed
+device TT algebra and cross approximation
 (:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
@@ -26,8 +28,20 @@ from tensor_networks_tpu_torch.types import (
 from tensor_networks_tpu_torch.dimtree import DimTreeNode, NodeInfo
 from tensor_networks_tpu_torch.kernels import TruncSVD, delta_svd
 from tensor_networks_tpu_torch.tensor import Tensor
-from tensor_networks_tpu_torch.network import EinsumArgs, TensorNetwork
+from tensor_networks_tpu_torch.network import EinsumArgs, TensorNetwork, vector
 from tensor_networks_tpu_torch.ops import (
+    tt_rank1,
+    tt_separable,
+    tt_right_orth,
+    tt_sum,
+    rand_tree,
+    tt_svd_round,
+    tt_gramsvd_round,
+    tt_sum_gramsvd_round,
+    TTRandRound,
+    tt_randomized_round,
+    tt_sum_randomized_round,
+    tt_rand_precond_svd_round,
     packed,
     PackedTT,
     tt_inner_fast,
@@ -53,6 +67,19 @@ __all__ = [
     "Tensor",
     "EinsumArgs",
     "TensorNetwork",
+    "vector",
+    "tt_rank1",
+    "tt_separable",
+    "tt_right_orth",
+    "tt_sum",
+    "rand_tree",
+    "tt_svd_round",
+    "tt_gramsvd_round",
+    "tt_sum_gramsvd_round",
+    "TTRandRound",
+    "tt_randomized_round",
+    "tt_sum_randomized_round",
+    "tt_rand_precond_svd_round",
     "packed",
     "PackedTT",
     "tt_inner_fast",

@@ -9,6 +9,8 @@ the first launch (:mod:`._build`).
 from tensor_networks_tpu_torch.kernels.linalg import (
     TruncSVD,
     delta_svd,
+    eps_to_rank,
+    gram_eig_and_svd,
     svd_full,
     qr_reduced,
     qr_reduced_padded,
@@ -17,6 +19,8 @@ from tensor_networks_tpu_torch.kernels.linalg import (
 __all__ = [
     "TruncSVD",
     "delta_svd",
+    "eps_to_rank",
+    "gram_eig_and_svd",
     "svd_full",
     "qr_reduced",
     "qr_reduced_padded",
