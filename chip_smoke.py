@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-six phases:
+seven phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -61,10 +61,25 @@ six phases:
    Gram families again above their floor; a summed HT (16 modes of 32,
    rank 32, f64) rounded from its root, its structure hash checked; and
    the inner product kernel's f64 instantiation timed at the main shape
-   and at the error norms' (200, 100).
+   and at the error norms' (200, 100);
+7. TT-GMRES on the card, each solve with the launch counters reset just
+   before and read just after: ``gmres_packed`` on ``bench.py``'s
+   screened-Poisson QTT systems (delta 1, rhs exp(-3 i / 2^K), x0 the
+   rhs padded to rank 4): leg A at K=22 (4,194,304 unknowns), Krylov
+   rank 8, in f64 and f32 with ``"svd"`` rounding and f64 with
+   ``"rand"``; leg B at K=14, rank 64 = max_rank, f32 and f64.  Each
+   solve's wall, cycles, iterations, device-busy time, kernels and host
+   syncs (a second, profiled run), H1 launches by dtype, its per-part
+   split, the residual as reported and recomputed on the CPU in f64, and
+   the solution at 8192 grid points through H2 against the tridiagonal
+   system solved in f64 on the host (``scipy.linalg.solve_banded``); H1
+   and H2 at the solve's shapes against their plain versions, timed in
+   turns.  Leg C: the graph ``gmres`` on a Kronecker-sum shifted
+   Laplacian (d=8 modes of 32, delta 8), residual reported and
+   recomputed.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
-phase 6's, one with per-kernel results,
+phase 6's, one with phase 7's, one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -763,38 +778,32 @@ ROUND_METHODS = ("svd", "gram", "cholqr2", "twosided", "prefix")
 
 
 def _device_profile(fn):
-    """One call of ``fn`` under torch.profiler: the device-busy ms (the
-    union of its kernels' and copies' intervals), the kernel count, and
-    the three kernels with the most device time [(name, ms, launches)]."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    """One call of ``fn`` under torch.profiler (CUDA activity): fn's
+    result, the device-busy ms (the union of its kernels' and copies'
+    intervals), the kernel count, and the three kernels with the most
+    device time [(name, ms, launches)].  Read from the raw events: a
+    TT-GMRES solve launches 1e4-1e5 kernels, too many to write and parse
+    a chrome trace."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"], e.get("cat"))
-                   for e in events if e.get("ph") == "X"
-                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, None
-    for s0, s1, _, _ in spans:
-        if end is None or s0 >= end:
-            busy += s1 - s0
-            end = s1
-        elif s1 > end:
-            busy += s1 - end
-            end = s1
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
     per_kernel = {}
-    for s0, s1, name, cat in spans:
-        if cat == "kernel":
-            us, count = per_kernel.get(name, (0.0, 0))
-            per_kernel[name] = (us + s1 - s0, count + 1)
+    for s0, s1, name in spans:
+        if end is None or s0 >= end:
+            busy, end = busy + s1 - s0, s1
+        elif s1 > end:
+            busy, end = busy + s1 - end, s1
+        if not name.startswith(("Memcpy", "Memset")):
+            ns, count = per_kernel.get(name, (0, 0))
+            per_kernel[name] = (ns + s1 - s0, count + 1)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:3]
     kernels = sum(c for _, c in per_kernel.values())
-    return busy / 1e3, kernels, [(name[:60], us / 1e3, c) for name, (us, c) in top]
+    return out, busy / 1e6, kernels, [(name[:60], ns / 1e6, c) for name, (ns, c) in top]
 
 
 def _host_syncs(fn):
@@ -909,7 +918,7 @@ def phase_rounding(a, inds, idx_np, ev_ref, dev):
                 call()
                 torch.cuda.synchronize()
                 runs.append(time.perf_counter() - t0)
-            busy, kernels, top = _device_profile(call)
+            _, busy, kernels, top = _device_profile(call)
             syncs, _ = _host_syncs(call)
         rows[method] = {"wall_ms": 1e3 * float(np.median(runs)), "busy_ms": busy,
                         "kernels": kernels, "syncs": syncs, "err": float(err),
@@ -1510,7 +1519,7 @@ def _cost(call, reps=5):
         call()
         torch.cuda.synchronize()
         runs.append(1e3 * (time.perf_counter() - t0))
-    busy, kernels, top = _device_profile(call)
+    _, busy, kernels, top = _device_profile(call)
     syncs, _ = _host_syncs(call)
     return {"wall_ms": float(np.median(runs)), "runs_ms": runs, "busy_ms": busy,
             "kernels": kernels, "syncs": syncs, "top": top}
@@ -1753,6 +1762,314 @@ def phase_inner_f64_timings(zp, pa, pb, dev):
     return rows
 
 
+# -- phase 7: TT-GMRES on the card ------------------------------------------
+
+#: bench.py's solver legs: the screened-Poisson QTT system (2 + delta) I
+#: - S - S^T with rhs exp(-c i / 2^K) (tools/solver_r64_probe.py:259-261)
+QTT_DELTA, QTT_C = 1.0, 3.0
+#: leg C: delta I plus one tridiag(-1, 2, -1) term per mode on d modes of
+#: n; delta = 8 puts the spectrum in [8.07, 39.9], a ratio under 5
+GRAPH_D, GRAPH_N, GRAPH_DELTA = 8, 32, 8.0
+#: (leg, K, Krylov rank, max_rank, runs): bench.py:1128 _leg_solver_tpu's
+#: K=22 rank-8 system and :1154 _leg_solver_r64's K=14 rank-64 one; each
+#: run is (name, dtype, rounding, eps / |rhs|, residual bar, error bar)
+GMRES_LEGS = (
+    ("A", 22, 8, None, (("f64_svd", torch.float64, "svd", 1e-9, 1e-8, 1e-7),
+                        ("f32_svd", torch.float32, "svd", 1e-5, 1e-5, 5e-4),
+                        ("f64_rand", torch.float64, "rand", 1e-9, 1e-5, None))),
+    ("B", 14, 64, 64, (("f32_svd", torch.float32, "svd", 1e-5, 1e-5, 5e-4),
+                       ("f64_svd", torch.float64, "svd", 1e-9, 1e-8, 1e-7))),
+)
+
+
+def _banded_solution(K, delta, c):
+    """The independent reference: tridiag(-1, 2 + delta, -1) u = exp(-c i
+    / 2^K) with Dirichlet ends, solved in f64 on the host by LAPACK's
+    banded solver."""
+    from scipy.linalg import solve_banded
+
+    n = 2**K
+    ab = np.zeros((3, n))
+    ab[0, 1:] = -1.0
+    ab[1] = 2.0 + delta
+    ab[2, :-1] = -1.0
+    return solve_banded((1, 1), ab, np.exp(-c * np.arange(n) / n))
+
+
+def _reset_counts(zp, ev):
+    torch.cuda.synchronize()
+    zp.tt_inner_cuda.launches = 0
+    zp.tt_inner_chain_cuda.launches = 0
+    zp.tt_inner_cuda.launches_by_dtype = dict.fromkeys(zp.DTYPE_SUFFIX.values(), 0)
+    _reset_evaluate_counts(ev)
+
+
+def _counts(zp, ev):
+    torch.cuda.synchronize()
+    by = {k: v for k, v in zp.tt_inner_cuda.launches_by_dtype.items() if v}
+    return {"zipper": zp.tt_inner_cuda.launches, "zipper_by_dtype": by,
+            "chain": zp.tt_inner_chain_cuda.launches,
+            "evaluate": ev.tt_evaluate_cuda.launches, "tiles": ev.group_tiles_cuda.launches}
+
+
+def _h1_h2_at(zp, ev, x, y, idx):
+    """H1 on (x, y) and H2 on x at idx -- the shapes a solve gives them --
+    against their plain versions (f64 plain for H1), each timed in turns
+    P K K P, with its bound."""
+    a, b = list(stack(x)), list(stack(y))
+    a64, b64 = _f64(*a), _f64(*b)
+    scale = math.sqrt(abs(zp.tt_inner_plain(*a64, *a64).item() * zp.tt_inner_plain(*b64, *b64).item()))
+    ref = zp.tt_inner_plain(*a64, *b64).item()
+    got = zp.tt_inner_cuda(*a, *b).item()
+    idx32 = idx.to(torch.int32).contiguous()
+    ev_k, ev_p = ev.tt_evaluate_cuda(*a, idx32), ev.tt_evaluate_plain(*a, idx32)
+    tol = 1e-4 if a[0].dtype == torch.float32 else 1e-12
+    h1_err = abs(got - ref) / scale
+    h2_err = (ev_k.double() - ev_p.double()).abs().max().item() / ev_p.abs().max().item()
+    if not (h1_err <= tol and h2_err <= tol):
+        raise AssertionError(f"H1 {h1_err:.3e} / H2 {h2_err:.3e} of scale against the plain "
+                             f"versions at {tuple(a[1].shape)}, tol {tol}")
+    rows = {}
+    for name, k, p, bound, err in (
+            ("h1", lambda: zp.tt_inner_cuda(*a, *b), lambda: zp.tt_inner_plain(*a, *b),
+             _inner_bound(a, b), abs(got - ref)),
+            ("h2", lambda: ev.tt_evaluate_cuda(*a, idx32), lambda: ev.tt_evaluate_plain(*a, idx32),
+             _evaluate_bound(a, idx32), (ev_k.double() - ev_p.double()).abs().max().item())):
+        runs = [_time_ms(p), _time_ms(k), _time_ms(k), _time_ms(p)]
+        rows[name] = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
+                      "runs_ms": runs, "bound_ms": bound[0], "bound_by": bound[1],
+                      "max_abs_err": err}
+    rows["h1"]["rel_err"], rows["h2"]["rel_err"] = h1_err, h2_err
+    return rows
+
+
+def _qtt_solve(tnt, zp, ev, K, rank, dtype, method, eps_rel, u_ref, pts, max_rank=None):
+    """One gmres_packed solve of the K-bit system from x0 = pad_rank(rhs,
+    4): wall (host clock, synchronised) with the launch counters reset
+    before and read after (H1's), then the same solve under
+    torch.profiler and the sync counter; the residual recomputed on the
+    CPU in f64; the solution at the grid points ``pts`` through H2
+    against the banded reference, H2's counters reset before and read
+    after."""
+    from tensor_networks_tpu_torch import packed
+
+    op = tnt.qtt_screened_laplacian(K, delta=QTT_DELTA, dtype=dtype)
+    rhs = tnt.qtt_exponential(K, c=QTT_C, dtype=dtype)
+    x0 = packed.pad_rank(rhs, 4)
+    rhs_norm = float(packed.norm_exact(rhs))
+
+    def call():
+        return packed.gmres_packed(op, rhs, x0, eps=eps_rel * rhs_norm, rank=rank,
+                                   max_rank=max_rank, round_method=method)
+
+    _reset_counts(zp, ev)
+    t0 = time.perf_counter()
+    x, resid = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(zp, ev)
+    stats = packed.gmres_packed.last_stats
+    iters = sum(c["iterations"] for c in stats["cycles"])
+    if counts["zipper"] == 0:
+        raise AssertionError(f"the K={K} {dtype} {method} solve launched no H1")
+    t0 = time.perf_counter()
+    (syncs, _), busy, kernels, _ = _device_profile(lambda: _host_syncs(call))
+    profiled = time.perf_counter() - t0
+
+    # the residual again, independently: x on the CPU in f64, the plain
+    # apply, norm_exact's QR sweep
+    op64 = tnt.qtt_screened_laplacian(K, delta=QTT_DELTA, device="cpu")
+    rhs64 = tnt.qtt_exponential(K, c=QTT_C, device="cpu")
+    x64 = packed.PackedTT(*(t.detach().double().cpu() for t in x))
+    res = packed.add(rhs64, packed.scale(packed.ttop_apply_packed(op64, x64), -1.0))
+    recomputed = float(packed.norm_exact(res))
+    rhs64_norm = float(packed.norm_exact(rhs64))
+
+    bits = torch.from_numpy((pts[:, None] >> np.arange(K)[None, :]) & 1).to(x.first.device)
+    _reset_evaluate_counts(ev)
+    got = packed.evaluate(x, bits).double().cpu().numpy()
+    torch.cuda.synchronize()
+    counts.update(evaluate=ev.tt_evaluate_cuda.launches, tiles=ev.group_tiles_cuda.launches)
+    err = float(np.abs(got - u_ref[pts]).max() / np.abs(u_ref).max())
+    if counts["evaluate"] != 1 or counts["tiles"] != 1 or got.shape != pts.shape \
+            or not np.all(np.isfinite(got)):
+        raise AssertionError(f"the solution's evaluation: launches {counts}, shape {got.shape}")
+    kernels_at = _h1_h2_at(zp, ev, x, packed.pad_rank(rhs, x.rank), bits)
+    return {"wall_s": wall, "profiled_s": profiled, "cycles": [[c["rank"], c["iterations"]]
+                                                                for c in stats["cycles"]],
+            "rank": x.rank, "iterations": iters, "busy_ms": busy, "kernels": kernels,
+            "syncs": syncs, "syncs_per_iteration": syncs / max(iters, 1),
+            "launches": counts,
+            "resid": resid / rhs_norm, "recomputed": recomputed / rhs64_norm,
+            "recomputed_abs": recomputed, "resid_abs": resid, "rhs_norm": rhs64_norm,
+            "err": err, "split_ms_per_iteration": {k: 1e3 * v / max(iters, 1)
+                                                   for k, v in stats["seconds"].items()},
+            "kernels_at": kernels_at}
+
+
+def _check_solve(name, row, rel_bar, err_bar):
+    bars = [("relative residual", row["resid"], rel_bar),
+            ("recomputed residual", row["recomputed_abs"],
+             3 * row["resid_abs"] + 1e-12 * row["rhs_norm"])]
+    if err_bar is not None:
+        bars.append(("error against the banded solve", row["err"], err_bar))
+    for what, got, bar in bars:
+        if not got <= bar:
+            raise AssertionError(f"phase 7 {name}: {what} {got:.3e} above {bar:.3e}")
+
+
+def _print_solve(name, row):
+    split = ", ".join(f"{k} {v:.3f}" for k, v in row["split_ms_per_iteration"].items())
+    h1, h2 = row["kernels_at"]["h1"], row["kernels_at"]["h2"]
+    print(f"  {name}: wall {row['wall_s']:.3f} s ({row['profiled_s']:.3f} s profiled), cycles "
+          f"(rank, iterations) {row['cycles']}, final rank {row['rank']}, {row['iterations']} "
+          f"iterations; device busy {row['busy_ms']:.1f} ms over {row['kernels']} kernels, "
+          f"{row['syncs']} host syncs ({row['syncs_per_iteration']:.1f} an iteration); "
+          f"launches {row['launches']}; residual / |rhs| {row['resid']:.3e} reported, "
+          f"{row['recomputed']:.3e} recomputed on the CPU in f64; max err / max|u_ref| "
+          f"{row['err']:.3e} at {B} grid points (H2); ms an iteration: {split}; H1 at "
+          f"(n=2, r={row['rank']}): kernel {h1['ms']:.4f} ms, plain {h1['plain_ms']:.4f}, "
+          f"bound {h1['bound_ms']:.5f} by {h1['bound_by']}, err {h1['rel_err']:.1e} of |a||b|; "
+          f"H2 at B={B}: kernel {h2['ms']:.4f} ms, plain {h2['plain_ms']:.4f}, bound "
+          f"{h2['bound_ms']:.5f} by {h2['bound_by']}, err {h2['rel_err']:.1e} of max|ref|")
+
+
+def _svd_round_departure(dev):
+    """``svd_round`` against the JAX package's form of it -- the masked
+    sweep at the input's rank, sliced to the target -- on a CGS2-sized
+    input: the sum of 8 rank-64 f64 trains at K=14 (rank 512), rounded
+    to 64.  Both results held together; each timed (host clock,
+    synchronised, median of 3 after one warm-up)."""
+    from tensor_networks_tpu_torch import packed
+    from tensor_networks_tpu_torch.ops.fast import _tt_round_sweep
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    r = 64
+    x = packed.add(*(packed.PackedTT(*_train(g, 14, 2, r, 1 / math.sqrt(2 * r),
+                                             dtype=torch.float64)) for _ in range(8)))
+
+    def masked():
+        f, m, l, _ = _tt_round_sweep(*x, 1e-7, True, False)
+        return packed.PackedTT(f[:, :r].contiguous(), m[:, :r, :, :r].contiguous(),
+                               l[:r].contiguous())
+
+    out = {}
+    for name, fn in (("svd_round", lambda: packed.svd_round(x, r)), ("masked", masked)):
+        y = fn()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        out[name] = (y, float(np.median(runs)))
+    (a, ms_a), (b, ms_b) = out["svd_round"], out["masked"]
+    diff = float(packed.norm_exact(packed.add(a, packed.scale(b, -1.0))))
+    rel = diff / float(packed.norm_exact(b))
+    if not rel <= 1e-10:
+        raise AssertionError(f"svd_round and the masked sweep differ by {rel:.3e}")
+    print(f"  svd_round on a sum of 8 rank-64 trains (K=14, rank 512, f64) to rank 64: "
+          f"{ms_a:.2f} ms, the masked sweep at rank 512 {ms_b:.2f} ms (medians of 3); "
+          f"results within {rel:.1e} of each other")
+    return {"ms": ms_a, "masked_ms": ms_b, "rel_diff": rel}
+
+
+def _graph_leg(tnt):
+    """Leg C: ops.solvers.gmres on the Kronecker-sum shifted Laplacian
+    (ttop_sum of delta I and one tridiag(-1, 2, -1) term per mode, d=8
+    modes of n=32, 32^8 ~ 1.1e12 unknowns), rank-1 seeded rhs and x0,
+    round_eps 1e-10, the default maxiter."""
+    from tensor_networks_tpu_torch import packed
+
+    rng = np.random.default_rng(SEED + 31)
+    ins = [tnt.Index(f"g{k}", GRAPH_N) for k in range(GRAPH_D)]
+    outs = [tnt.Index(f"h{k}", GRAPH_N) for k in range(GRAPH_D)]
+    eye = np.eye(GRAPH_N)
+    tri = 2.0 * eye - np.eye(GRAPH_N, k=1) - np.eye(GRAPH_N, k=-1)
+    summands = [[GRAPH_DELTA * eye] + [eye] * (GRAPH_D - 1)] + [
+        [tri if j == k else eye for j in range(GRAPH_D)] for k in range(GRAPH_D)]
+    vecs = [[rng.standard_normal(GRAPH_N) for _ in range(GRAPH_D)] for _ in range(2)]
+    op = tnt.ttop_sum(ins, outs, summands, "L")
+    rhs, x0 = (tnt.tt_rank1(ins, v) for v in vecs)
+    rhs_norm = rhs.norm()
+    eps = 1e-6 * rhs_norm
+    applies = [0]
+
+    def apply(t):
+        applies[0] += 1
+        return tnt.ttop_apply(op, t)
+
+    def call():
+        return tnt.gmres(apply, rhs, x0, eps, 1e-10)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, resid = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = applies[0] - 2
+    # again, counting host syncs: the contraction plans are cached now
+    t0 = time.perf_counter()
+    syncs, _ = _host_syncs(call)
+    warm = time.perf_counter() - t0
+    op_cpu = tnt.ttop_sum(ins, outs, summands, "L", device="cpu")
+    x_cpu = tnt.TensorNetwork.from_separated_dict(*x.to_separated_dict(), device="cpu")
+    rhs_cpu = tnt.tt_rank1(ins, vecs[0], device="cpu")
+    diff = rhs_cpu + tnt.ttop_apply(op_cpu, x_cpu).scale(-1.0)
+    recomputed = float(packed.norm_exact(packed.pack_ragged(diff)))
+    row = {"wall_s": wall, "warm_s": warm, "iterations": iters, "ranks": x.ranks(), "syncs": syncs,
+           "resid": resid / rhs_norm, "recomputed": recomputed / rhs_norm, "delta": GRAPH_DELTA}
+    if not (row["resid"] < 1e-5 and recomputed <= 3 * resid + 1e-12 * rhs_norm):
+        raise AssertionError(f"phase 7 graph route: residual {row['resid']:.3e} reported, "
+                             f"{row['recomputed']:.3e} recomputed")
+    print(f"  C graph gmres, d={GRAPH_D} n={GRAPH_N} ({GRAPH_N}^{GRAPH_D} unknowns), delta {GRAPH_DELTA}, op "
+          f"rank {GRAPH_D + 1}, eps 1e-6 |rhs|: wall {wall:.3f} s ({warm:.3f} s again, plans "
+          f"cached, counting syncs), {iters} iterations, ranks "
+          f"{row['ranks']}, {syncs} host syncs; residual / |rhs| {row['resid']:.3e} reported, "
+          f"{row['recomputed']:.3e} recomputed on the CPU in f64")
+    return row
+
+
+def phase_gmres(zp, ev):
+    """TT-GMRES on the card: bench.py's solver_tpu system (leg A: K=22,
+    rank 8; f64 and f32 svd, f64 rand), its solver_r64 shape (leg B:
+    K=14, rank 64 = max_rank, f32 and f64), and the graph route (leg C).
+    Each leg's launch counters are reset before and read after."""
+    import tensor_networks_tpu_torch as tnt
+
+    pts_rng = np.random.default_rng(SEED + 30)
+    out, launches = {}, {}
+    print("phase 7 TT-GMRES on the card (screened-Poisson QTT, delta 1, rhs exp(-3 i / 2^K)):")
+    for leg, K, rank, max_rank, runs in GMRES_LEGS:
+        u_ref = _banded_solution(K, QTT_DELTA, QTT_C)
+        pts = pts_rng.integers(0, 2**K, B)
+        for name, dtype, method, eps_rel, rel_bar, err_bar in runs:
+            key = f"{leg}_{name}"
+            row = _qtt_solve(tnt, zp, ev, K, rank, dtype, method, eps_rel, u_ref, pts,
+                             max_rank)
+            _print_solve(f"{leg} K={K} rank {rank} {name}", row)
+            _check_solve(key, row, rel_bar, err_bar)
+            out[key] = row
+            launches[key] = row["launches"]
+    svd_vs_masked = _svd_round_departure(torch.device("cuda:0"))
+    _reset_counts(zp, ev)
+    out["C"] = _graph_leg(tnt)
+    launches["C"] = _counts(zp, ev)
+    print(f"  phase 7 launches by solve: {launches}")
+    line = {k: [_sig(r["wall_s"]), r["iterations"], r["rank"], _sig(r["busy_ms"]), r["kernels"],
+                r["syncs"], _sig(r["resid"]), _sig(r["recomputed"]), _sig(r["err"])]
+            for k, r in out.items() if k != "C"}
+    line["columns"] = ["wall_s", "iterations", "rank", "busy_ms", "kernels", "syncs",
+                       "resid", "recomputed", "err"]
+    line["C"] = {k: _sig(v) for k, v in out["C"].items()}
+    line["B_split_ms"] = {k: _sig(out[k]["split_ms_per_iteration"])
+                          for k in ("B_f32_svd", "B_f64_svd")}
+    line["svd_round_vs_masked"] = _sig(svd_vs_masked)
+    print(json.dumps({"gmres": line}, separators=(",", ":")))
+    return out, launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -1773,7 +2090,8 @@ def _kernel_numbers(t):
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
     for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms"))):
+                        ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms")),
+                        ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
         if group in t:
             out[group] = {k: {f: v[f] for f in keep} for k, v in t[group].items()}
     return out
@@ -1829,6 +2147,10 @@ def main() -> int:
     inner64 = phase_inner_f64_timings(zp, pa, pb, dev)
     times["inner"]["by_dtype"]["f64"] = inner64["f64"]
     times["chain"]["by_dtype"]["f64_err_norm"] = inner64["f64_err_norm"]
+    gmres_out, gmres_launches = phase_gmres(zp, ev)
+    for name, key in (("inner", "h1"), ("evaluate", "h2")):
+        times[name]["gmres"] = {k: r["kernels_at"][key] for k, r in gmres_out.items()
+                                if k != "C"}
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
@@ -1836,26 +2158,30 @@ def main() -> int:
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
                      ":229 tt_inner_pallas_fused",
          "launches": launches["zipper"], **_kernel_numbers(times["inner"]),
-         "launches_rounding": round_launches["zipper"]},
+         "launches_rounding": round_launches["zipper"],
+         "launches_gmres": {k: v["zipper"] for k, v in gmres_launches.items()}},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
                      ":229 tt_inner_pallas_fused, above rank 128",
          "launches": launches["chain"], **_kernel_numbers(times["chain"]),
-         "launches_rounding": round_launches["chain"]},
+         "launches_rounding": round_launches["chain"],
+         "launches_gmres": {k: v["chain"] for k, v in gmres_launches.items()}},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
                      "tensor_networks_tpu/kernels/ragged_eval.py:107 tt_evaluate_ragged",
          "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"]),
          "launches_cross": cross_launches["by_dtype"],
-         "launches_rounding": round_launches["evaluate"]},
+         "launches_rounding": round_launches["evaluate"],
+         "launches_gmres": {k: v["evaluate"] for k, v in gmres_launches.items()}},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
          "launches": launches["tiles"], **_kernel_numbers(times["tiles"]),
          "launches_cross": cross_launches["tiles"],
-         "launches_rounding": round_launches["tiles"]},
+         "launches_rounding": round_launches["tiles"],
+         "launches_gmres": {k: v["tiles"] for k, v in gmres_launches.items()}},
     ]
     print(json.dumps({"kernels": [_sig(k) for k in kernels]}, separators=(",", ":")))
     print(card)

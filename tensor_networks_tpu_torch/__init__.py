@@ -3,9 +3,10 @@
 The same named-index tensor networks as the JAX package, written in
 PyTorch for one NVIDIA H100: an edge-aware cached contraction planner,
 the graph rewrites (svd, qr, merge, orthonormalize, round), the TT
-constructors and the four TT rounding families, uniform-train fast
-paths (zipper inner product, fixed-rank rounding sweep), the packed
-device TT algebra and cross approximation
+constructors and the four TT rounding families, TT-operators and
+TT-GMRES (graph and packed), uniform-train fast paths (zipper inner
+product, fixed-rank rounding sweep), the packed device TT algebra, the
+QTT constructors and cross approximation
 (:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
@@ -35,6 +36,11 @@ from tensor_networks_tpu_torch.ops import (
     tt_right_orth,
     tt_sum,
     rand_tree,
+    ttop_rank1,
+    ttop_rank2,
+    ttop_sum,
+    ttop_apply,
+    ttop_sum_apply,
     tt_svd_round,
     tt_gramsvd_round,
     tt_sum_gramsvd_round,
@@ -42,8 +48,34 @@ from tensor_networks_tpu_torch.ops import (
     tt_randomized_round,
     tt_sum_randomized_round,
     tt_rand_precond_svd_round,
+    gmres,
     packed,
     PackedTT,
+    PackedTTOp,
+    gmres_packed,
+    pack_ttop,
+    rand_round,
+    svd_round,
+    ttop_add,
+    ttop_apply_packed,
+    ttop_compose,
+    ttop_identity,
+    ttop_round,
+    ttop_scale,
+    ttop_transpose,
+    qtt,
+    qtt_exponential,
+    qtt_exponential_2d,
+    qtt_exponential_nd,
+    qtt_interleave_1d_op,
+    qtt_polynomial,
+    qtt_rank1_from_weights,
+    qtt_screened_laplacian,
+    qtt_screened_laplacian_2d,
+    qtt_screened_laplacian_nd,
+    qtt_shift,
+    qtt_tridiagonal,
+    qtt_trig,
     tt_inner_fast,
     tt_inner_fn,
     stack_tt_cores,
@@ -73,6 +105,11 @@ __all__ = [
     "tt_right_orth",
     "tt_sum",
     "rand_tree",
+    "ttop_rank1",
+    "ttop_rank2",
+    "ttop_sum",
+    "ttop_apply",
+    "ttop_sum_apply",
     "tt_svd_round",
     "tt_gramsvd_round",
     "tt_sum_gramsvd_round",
@@ -80,8 +117,34 @@ __all__ = [
     "tt_randomized_round",
     "tt_sum_randomized_round",
     "tt_rand_precond_svd_round",
+    "gmres",
     "packed",
     "PackedTT",
+    "PackedTTOp",
+    "gmres_packed",
+    "pack_ttop",
+    "rand_round",
+    "svd_round",
+    "ttop_add",
+    "ttop_apply_packed",
+    "ttop_compose",
+    "ttop_identity",
+    "ttop_round",
+    "ttop_scale",
+    "ttop_transpose",
+    "qtt",
+    "qtt_exponential",
+    "qtt_exponential_2d",
+    "qtt_exponential_nd",
+    "qtt_interleave_1d_op",
+    "qtt_polynomial",
+    "qtt_rank1_from_weights",
+    "qtt_screened_laplacian",
+    "qtt_screened_laplacian_2d",
+    "qtt_screened_laplacian_nd",
+    "qtt_shift",
+    "qtt_tridiagonal",
+    "qtt_trig",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

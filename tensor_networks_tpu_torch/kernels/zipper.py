@@ -297,18 +297,22 @@ def tt_inner_cuda(
     Ranks up to :data:`FUSED_MAX_RANK` take the fused route, larger ones
     the chain.  Counts one call in ``tt_inner_cuda.launches``, the fused
     ones also in ``tt_inner_cuda.fused`` (the chain's in
-    ``tt_inner_chain_cuda.launches``), and keeps the device launches of
-    the last call in ``tt_inner_cuda.last_device_launches``.
+    ``tt_inner_chain_cuda.launches``), every call by the cores' dtype
+    in ``tt_inner_cuda.launches_by_dtype`` (keys "f32", "f64", "bf16",
+    "f16"), and keeps the device launches of the last call in
+    ``tt_inner_cuda.last_device_launches``.
     """
     dims = _check_cores(fa, ma, la, fb, mb, lb, "tt_inner_cuda")
     route = _fused if takes_fused_route(dims[3], dims[4]) else _chain
     out, launches = route(fa, ma, la, fb, mb, lb, *dims)
     tt_inner_cuda.launches += 1
+    tt_inner_cuda.launches_by_dtype[DTYPE_SUFFIX[fa.dtype]] += 1
     tt_inner_cuda.last_device_launches = launches
     return out
 
 
 tt_inner_cuda.launches = 0
+tt_inner_cuda.launches_by_dtype = dict.fromkeys(DTYPE_SUFFIX.values(), 0)
 tt_inner_cuda.fused = 0
 tt_inner_cuda.last_device_launches = 0
 

@@ -1,5 +1,6 @@
-"""TT algebra, the four rounding families, fused train operations and
-the packed device TT algebra."""
+"""TT algebra, the four rounding families, TT-operators and GMRES,
+fused train operations, the packed device TT algebra and the QTT
+constructors."""
 
 from tensor_networks_tpu_torch.ops.tt import (
     tt_rank1,
@@ -7,6 +8,13 @@ from tensor_networks_tpu_torch.ops.tt import (
     tt_right_orth,
     tt_sum,
     rand_tree,
+)
+from tensor_networks_tpu_torch.ops.ttop import (
+    ttop_rank1,
+    ttop_rank2,
+    ttop_sum,
+    ttop_apply,
+    ttop_sum_apply,
 )
 from tensor_networks_tpu_torch.ops.rounding import tt_svd_round
 from tensor_networks_tpu_torch.ops.gram import (
@@ -19,8 +27,37 @@ from tensor_networks_tpu_torch.ops.randomized import (
     tt_sum_randomized_round,
     tt_rand_precond_svd_round,
 )
-from tensor_networks_tpu_torch.ops import packed
-from tensor_networks_tpu_torch.ops.packed import PackedTT
+from tensor_networks_tpu_torch.ops.solvers import gmres
+from tensor_networks_tpu_torch.ops import packed, qtt
+from tensor_networks_tpu_torch.ops.packed import (
+    PackedTT,
+    PackedTTOp,
+    gmres_packed,
+    pack_ttop,
+    rand_round,
+    svd_round,
+    ttop_add,
+    ttop_apply_packed,
+    ttop_compose,
+    ttop_identity,
+    ttop_round,
+    ttop_scale,
+    ttop_transpose,
+)
+from tensor_networks_tpu_torch.ops.qtt import (
+    qtt_exponential,
+    qtt_exponential_2d,
+    qtt_exponential_nd,
+    qtt_interleave_1d_op,
+    qtt_polynomial,
+    qtt_rank1_from_weights,
+    qtt_screened_laplacian,
+    qtt_screened_laplacian_2d,
+    qtt_screened_laplacian_nd,
+    qtt_shift,
+    qtt_tridiagonal,
+    qtt_trig,
+)
 from tensor_networks_tpu_torch.ops.fast import (
     tt_inner_fast,
     tt_inner_fn,
@@ -34,6 +71,11 @@ __all__ = [
     "tt_right_orth",
     "tt_sum",
     "rand_tree",
+    "ttop_rank1",
+    "ttop_rank2",
+    "ttop_sum",
+    "ttop_apply",
+    "ttop_sum_apply",
     "tt_svd_round",
     "tt_gramsvd_round",
     "tt_sum_gramsvd_round",
@@ -41,8 +83,34 @@ __all__ = [
     "tt_randomized_round",
     "tt_sum_randomized_round",
     "tt_rand_precond_svd_round",
+    "gmres",
     "packed",
     "PackedTT",
+    "PackedTTOp",
+    "gmres_packed",
+    "pack_ttop",
+    "rand_round",
+    "svd_round",
+    "ttop_add",
+    "ttop_apply_packed",
+    "ttop_compose",
+    "ttop_identity",
+    "ttop_round",
+    "ttop_scale",
+    "ttop_transpose",
+    "qtt",
+    "qtt_exponential",
+    "qtt_exponential_2d",
+    "qtt_exponential_nd",
+    "qtt_interleave_1d_op",
+    "qtt_polynomial",
+    "qtt_rank1_from_weights",
+    "qtt_screened_laplacian",
+    "qtt_screened_laplacian_2d",
+    "qtt_screened_laplacian_nd",
+    "qtt_shift",
+    "qtt_tridiagonal",
+    "qtt_trig",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

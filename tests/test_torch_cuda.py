@@ -482,3 +482,60 @@ def test_cross_on_the_card(dev):
         assert all(net.value(n).is_cuda for n in net.network.nodes)
         real, approx = func(grid), net.evaluate(func.indices, grid)
         assert np.linalg.norm(real - approx) / np.linalg.norm(real) <= 1e-4
+
+
+# the QTT shapes of TT-GMRES: n=2, d=14 and 22, the Krylov ranks
+QTT_ZIP_CASES = [(d, r) for d in (14, 22) for r in (4, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,r", QTT_ZIP_CASES)
+def test_zipper_kernel_at_qtt_shapes(dev, dtype, d, r):
+    """H1 at n=2 (its grid runs 2 blocks per band) against the f64 plain
+    zipper, on the fused route; two calls give the same bits."""
+    g = torch.Generator().manual_seed(d * 100 + r)
+    a = _train(g, d, 2, r, dtype, dev)
+    b = _train(g, d, 2, r, dtype, dev)
+    a64, b64 = _f64(a), _f64(b)
+    scale = math.sqrt(tzp.tt_inner_plain(*a64, *a64).item()
+                      * tzp.tt_inner_plain(*b64, *b64).item())
+    ref = tzp.tt_inner_plain(*a64, *b64).item()
+    before = tzp.tt_inner_cuda.fused
+    got = tzp.tt_inner_cuda(*a, *b)
+    assert tzp.tt_inner_cuda.fused == before + 1
+    assert torch.equal(got, tzp.tt_inner_cuda(*a, *b))
+    assert abs(got.item() - ref) <= TOL[dtype] * scale
+
+
+def test_gmres_packed_on_the_card_matches_the_cpu(dev):
+    """gmres_packed on the K=10 screened-Poisson QTT system, f64, on the
+    card and on the CPU: both under the residual bar (1e-8 of |rhs|),
+    the iterates within 1e-7 of each other."""
+    from tensor_networks_tpu_torch.ops import qtt
+
+    out = {}
+    for where in (dev, "cpu"):
+        op = qtt.qtt_screened_laplacian(10, delta=1.0, device=where)
+        rhs = qtt.qtt_exponential(10, c=3.0, device=where)
+        x, resid = tpk.gmres_packed(op, rhs, tpk.pad_rank(rhs, 4), eps=1e-9, rank=8)
+        rhs_norm = float(tpk.norm_exact(rhs))
+        assert resid / rhs_norm < 1e-8
+        assert x.first.device.type == torch.device(where).type
+        out[str(where)] = (tpk.PackedTT(*(t.cpu() for t in x)), rhs_norm)
+    (xc, norm_c), (xg, _) = out["cpu"], out[str(dev)]
+    diff = tpk.add(xc, tpk.scale(xg, -1.0))
+    assert float(tpk.norm_exact(diff)) <= 1e-7 * float(tpk.norm_exact(xc))
+
+
+def test_operator_constructors_on_the_card(dev):
+    """ttop_identity and the QTT constructors default to the card and give
+    contiguous cores with no stride-0 axis."""
+    from tensor_networks_tpu_torch.ops import qtt
+
+    built = [tpk.ttop_identity(6, 2), qtt.qtt_screened_laplacian(8),
+             qtt.qtt_shift(8), qtt.qtt_screened_laplacian_2d(4),
+             qtt.qtt_exponential(8), qtt.qtt_trig(8, 3.0),
+             qtt.qtt_polynomial(8, [1.0, 2.0])]
+    for cores in built:
+        for x in cores:
+            assert x.device == dev and x.is_contiguous() and 0 not in x.stride()
