@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-seven phases:
+eight phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -76,10 +76,32 @@ seven phases:
    and H2 at the solve's shapes against their plain versions, timed in
    turns.  Leg C: the graph ``gmres`` on a Kronecker-sum shifted
    Laplacian (d=8 modes of 32, delta 8), residual reported and
-   recomputed.
+   recomputed;
+8. the ALS linear solver and the DMRG eigensolver on the card at
+   ``bench.py``'s solver configurations, TF32 off: (a) ``als_solve`` on
+   phase 7's K=22 system from ``pad_rank(rhs, 8)`` (spd, dense locals,
+   singular at the end bonds) in f64 and f32, fused and host loop, its
+   solution at 8192 grid points through H2 against the banded solve;
+   (b) ``bench.py``'s ``_leg_solver_cpu`` on the card in f64: the
+   2^30-unknown solve and the 32^3 DMRG ground state against the
+   analytic eigenvalue; (c) ``tools/solver_r64_probe.py``'s K=14,
+   rank-64 f32 fused ALS and eigsh (CG and Lanczos locals of 8192
+   unknowns), the per-sweep time the slope between 5 and 8 sweeps, with
+   GFLOP/s; (d) ``als_eigsh_k`` (k=3, slots) at K=14 in f64 against the
+   analytic eigenvalues, the overlaps through H1; (e)
+   ``als_solve_adaptive`` with and without enrichment on the 3-axis
+   interleaved system at 3 bits per axis (the reference suite's claims)
+   and at 5.  Each solve's wall, sweeps, ms a sweep (CUDA events),
+   device-busy share and kernels (torch.profiler, a second run) and host
+   syncs by kind (the stop test, the record fetch, cuSOLVER's status
+   checks), its residual reported and recomputed on the CPU in f64 or its
+   eigenvalue error; H1 and H2 at the legs' shapes against their plain
+   versions; ``torch.linalg.lstsq`` refused for the whole phase (the
+   dense local solve must not reach its full-rank ``gels``).
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
-phase 6's, one with phase 7's, one with per-kernel results,
+phase 6's, one with phase 7's, one with phase 8's, one with per-kernel
+results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -2070,6 +2092,447 @@ def phase_gmres(zp, ev):
     return out, launches
 
 
+# -- phase 8: the ALS linear solver and the DMRG eigensolver on the card -------
+
+#: 8a: the K=22 system of phase 7, x0 = pad_rank(rhs, 8), spd; each run
+#: is (name, dtype, relative residual bar, error bar), phase 7's bars
+ALS22_RUNS = (("f64", torch.float64, 1e-10, 1e-7), ("f32", torch.float32, 1e-5, 5e-4))
+#: 8c: tools/solver_r64_probe.py's configuration; the per-sweep time is
+#: the slope between the two sweep budgets, as the probe takes it
+R64_K, R64_RANK, R64_ITERS, R64_BUDGETS = 14, 64, 48, (5, 8)
+#: 8c's bars: the ALS relative residual and the Lanczos eigenvalue's
+#: error against the exact delta + 2 - 2 cos(pi / (2^14 + 1)), both set
+#: by the fixed 48-step budgets (the low spectrum is a cluster: ~100
+#: states within 1.3e-4, so the error is the budget's, not roundoff's).
+#: The port's CPU rehearsal (f32, ``python3 chip_smoke.py --rehearse
+#: 8c``, 8 threads) gives 3.76e-4 and 5.60e-4; the card gave 3.41e-4 to
+#: 3.50e-4 and 6.4e-4 to 1.16e-3 over its runs; the bars sit above.  8d's relative
+#: bar on each of the three lowest eigenvalues and on the pairwise
+#: overlaps (K=14, delta 0.3, f64; the rehearsal gives 1.9e-15 and 1.7e-16)
+R64_ALS_BAR, R64_EIG_BAR, EIGK_BAR = 1e-3, 3e-3, 1e-11
+#: 8e: (bits per axis, relative residual bars of the enriched and the
+#: padded run).  At 5 bits rank 16 cannot reach 1e-10: the CPU rehearsal
+#: (``--rehearse 8e``) ends enriched at 4.3115e-3 with 2 and 8 threads;
+#: padded at 4.31e-3 to 4.49e-3, and the card at 5.20e-3 (the padded
+#: bonds take their new directions from QR's null-space completion,
+#: which follows the summation order); the bars sit above them
+ADAPTIVE_RUNS = ((3, {"enrich": 1e-10, "pad": 1e-10}),
+                 (5, {"enrich": 4.36e-3, "pad": 1e-2}))
+#: where a host sync comes from, by a pattern of the source line that
+#: made it: the stop test and the record fetch of a fused loop, the
+#: host loop's float reads, and cuSOLVER's status checks
+SYNC_KINDS = (("bool(flag)", "stop test"), (".cpu()", "record fetch"),
+              ("torch.linalg.svd", "svd info"), ("torch.linalg.eigh", "eigh info"),
+              ("int(_trunc_count", "svd_round rank read"), ("float(", "host float"))
+CUSOLVER_INFO = ("svd info", "eigh info")
+
+
+def _sync_sites(fn):
+    """One call of ``fn`` with ``torch.cuda.set_sync_debug_mode``: its
+    host syncs by kind and fn's result.  A sync is put down to the
+    innermost Python frame of the call outside torch (the line that
+    asked for it), classified by the :data:`SYNC_KINDS` pattern of that
+    line, else named by its ``file:line``."""
+    import traceback
+    import warnings
+
+    torch_dir = os.path.dirname(torch.__file__)
+    sites = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frame = next(f for f in reversed(traceback.extract_stack())
+                     if not f.filename.startswith(torch_dir)
+                     and not f.filename.endswith("warnings.py") and f.name != "hook")
+        if frame.name == "_sync_sites":  # setting the debug mode synchronises
+            return
+        kind = next((k for pat, k in SYNC_KINDS if pat in (frame.line or "")),
+                    f"{os.path.basename(frame.filename)}:{frame.lineno}")
+        sites[kind] = sites.get(kind, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites, out
+
+
+def _solver_run(call, zp, ev):
+    """One call: wall on the host clock (synchronised), its CUDA-event ms
+    and H1/H2 launches (counters reset just before, read just after);
+    then the same call under torch.profiler and the sync counter."""
+    _reset_counts(zp, ev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = call()
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(zp, ev)
+    (syncs, _), busy, kernels, top = _device_profile(lambda: _sync_sites(call))
+    return out, {"wall_s": wall, "event_ms": start.elapsed_time(stop), "busy_ms": busy,
+                 "busy_share": busy / (1e3 * wall), "kernels": kernels, "syncs": syncs,
+                 "top": top, "launches": launches}
+
+
+def _check_syncs(name, row, fused):
+    """A fused loop reads the card once a sweep (its stop test) and once
+    at the end (its record); any other sync is a cuSOLVER status check."""
+    syncs = row["syncs"]
+    if fused:
+        bad = {k: v for k, v in syncs.items()
+               if k not in CUSOLVER_INFO + ("stop test", "record fetch")}
+        if bad or syncs.get("stop test") != row["sweeps"] or syncs.get("record fetch") != 1:
+            raise AssertionError(f"phase 8 {name}: syncs {syncs} over {row['sweeps']} sweeps")
+    row["syncs_per_sweep"] = {k: v / max(row["sweeps"], 1) for k, v in syncs.items()}
+
+
+def _recomputed_residual(tnt, op_cpu, rhs_cpu, x):
+    """|rhs - op x| with x copied to the CPU in f64: the plain apply and
+    norm_exact's QR sweep."""
+    from tensor_networks_tpu_torch import packed
+
+    x64 = packed.PackedTT(*(t.detach().double().cpu() for t in x))
+    res = packed.add(rhs_cpu, packed.scale(packed.ttop_apply_packed(op_cpu, x64), -1.0))
+    return float(packed.norm_exact(res))
+
+
+def _grid_error(zp, ev, x, u_ref, pts, K):
+    """The solution at the grid points through H2 (counters reset before
+    and read after) against the reference, relative to max|u_ref|."""
+    from tensor_networks_tpu_torch import packed
+
+    bits = torch.from_numpy((pts[:, None] >> np.arange(K)[None, :]) & 1).to(x.first.device)
+    _reset_counts(zp, ev)
+    got = packed.evaluate(x, bits).double().cpu().numpy()
+    counts = _counts(zp, ev)
+    if counts["evaluate"] != 1 or got.shape != pts.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"the solution's evaluation: launches {counts}, shape {got.shape}")
+    return float(np.abs(got - u_ref[pts]).max() / np.abs(u_ref).max()), bits, counts
+
+
+def _als22_leg(tnt, zp, ev, pts):
+    """8a: als_solve on phase 7's K=22 system (4,194,304 unknowns) from
+    pad_rank(rhs, 8), spd, dense locals (the end bonds' locals are
+    singular), f64 and f32, the fused loop and the host loop."""
+    from tensor_networks_tpu_torch import packed
+
+    K = 22
+    u_ref = _banded_solution(K, QTT_DELTA, QTT_C)
+    op64 = tnt.qtt_screened_laplacian(K, delta=QTT_DELTA, device="cpu")
+    rhs64 = tnt.qtt_exponential(K, c=QTT_C, device="cpu")
+    rhs_norm = float(packed.norm_exact(rhs64))
+    rows, kernels_at = {}, {}
+    for name, dtype, rel_bar, err_bar in ALS22_RUNS:
+        op = tnt.qtt_screened_laplacian(K, delta=QTT_DELTA, dtype=dtype)
+        rhs = tnt.qtt_exponential(K, c=QTT_C, dtype=dtype)
+        for fused in (True, False):
+            key = f"{name}_{'fused' if fused else 'host'}"
+
+            def call():
+                return tnt.als_solve(op, rhs, packed.pad_rank(rhs, 8), sweeps=8,
+                                     tol=0.1 * rel_bar * rhs_norm, spd=True, fused=fused)
+
+            call()  # first calls at these shapes, untimed: fused and host alike
+            (x, res, hist), row = _solver_run(call, zp, ev)
+            row["sweeps"] = len(hist)
+            row["ms_per_sweep"] = row["event_ms"] / len(hist)
+            row["resid"] = res / rhs_norm
+            row["recomputed"] = _recomputed_residual(tnt, op64, rhs64, x) / rhs_norm
+            row["err"], bits, row["launches_grid"] = _grid_error(zp, ev, x, u_ref, pts, K)
+            _check_syncs(f"8a {key}", row, fused)
+            for what, got, bar in (("relative residual", row["resid"], rel_bar),
+                                   ("recomputed residual", row["recomputed"],
+                                    3 * row["resid"] + 1e-12),
+                                   ("error against the banded solve", row["err"], err_bar)):
+                if not got <= bar:
+                    raise AssertionError(f"phase 8 8a {key}: {what} {got:.3e} above {bar:.3e}")
+            rows[key] = row
+            if fused:
+                kernels_at[f"8a_{name}"] = _h1_h2_at(zp, ev, x, packed.pad_rank(rhs, 8), bits)
+    for name, _, _, _ in ALS22_RUNS:
+        rows[f"{name}_fused_over_host"] = (rows[f"{name}_fused"]["ms_per_sweep"]
+                                           / rows[f"{name}_host"]["ms_per_sweep"])
+    return rows, kernels_at
+
+
+def _solver_cpu_leg(tnt, zp, ev):
+    """8b: bench.py:1321-1350 _leg_solver_cpu on the card in f64: the
+    2^30-unknown ALS solve (2 sweeps, tol 1e-12) and the 32^3 DMRG
+    ground state (8 sweeps)."""
+    from tensor_networks_tpu_torch import packed
+
+    rows = {}
+    op = tnt.qtt_screened_laplacian(30, delta=1.0)
+    rhs = tnt.qtt_exponential(30, c=3.0)
+    (x, res, hist), row = _solver_run(
+        lambda: tnt.als_solve(op, rhs, packed.pad_rank(rhs, 8), sweeps=2, tol=1e-12), zp, ev)
+    rhs64 = tnt.qtt_exponential(30, c=3.0, device="cpu")
+    rhs_norm = float(packed.norm_exact(rhs64))
+    row.update(sweeps=len(hist), resid=res / rhs_norm,
+               recomputed=_recomputed_residual(
+                   tnt, tnt.qtt_screened_laplacian(30, delta=1.0, device="cpu"), rhs64, x)
+               / rhs_norm)
+    row["ms_per_sweep"] = row["event_ms"] / len(hist)
+    _check_syncs("8b als", row, True)
+    if not (row["resid"] < 1e-12 and row["recomputed"] <= 3 * row["resid"] + 1e-14):
+        raise AssertionError(f"phase 8 8b 2^30 ALS: residual {row['resid']:.3e} reported, "
+                             f"{row['recomputed']:.3e} recomputed")
+    rows["als_2pow30"] = row
+
+    op3 = tnt.qtt_screened_laplacian_nd(5, 3, delta=1.0)
+    x0 = packed.pad_rank(tnt.qtt_exponential_nd(5, (1.0, 2.0, 3.0)), 8)
+    (x3, lam, hist), row = _solver_run(lambda: tnt.als_eigsh(op3, x0, sweeps=8), zp, ev)
+    exact = 1.0 + 3 * (2 - 2 * math.cos(math.pi / 33))
+    row.update(sweeps=len(hist) // 2, lam=lam, err=abs(lam - exact),
+               norm=float(packed.norm_exact(x3)))
+    row["ms_per_sweep"] = row["event_ms"] / row["sweeps"]
+    _check_syncs("8b eigsh", row, True)
+    if not (row["err"] < 1e-10 and abs(row["norm"] - 1) < 1e-10):
+        raise AssertionError(f"phase 8 8b 32^3 eigsh: |lam - exact| {row['err']:.3e}, "
+                             f"|x| {row['norm']:.12f}")
+    rows["eigsh_32cubed"] = row
+    return rows
+
+
+def _als_sweep_flops(d, r, n, s, cg_iters):
+    """FLOPs of one ALS sweep (fwd+bwd) with CG locals, as
+    tools/solver_r64_probe.py counts them: per local solve ``cg_iters``
+    matvecs at ~4 s n r^3, ~2 env advances and one QR per core."""
+    matvec = 4.0 * s * n * r**3
+    return 2 * d * (cg_iters * matvec + 2.0 * matvec + 2.0 * n * r**3)
+
+
+def _eig_sweep_flops(d, r, n, s, iters):
+    """FLOPs of one eigsh sweep with Lanczos locals (the probe's count):
+    per local ``iters`` whitened applies and CGS2 reorthogonalization,
+    plus env advances."""
+    m = r * n * r
+    applyf = 4.0 * s * n * r**3 + 8.0 * n * r**3
+    return 2 * d * (iters * (applyf + 4.0 * iters * m) + 8.0 * s * n * r**3)
+
+
+def _r64_leg(tnt, zp, ev):
+    """8c: tools/solver_r64_probe.py on the card: K=14, rank 64, f32, CG
+    and Lanczos locals of 8192 unknowns, fused ALS and fused eigsh at 5
+    and 8 sweeps (tol -1: every sweep runs): the per-sweep time is the
+    slope between them (host clock), the errors the 8-sweep solve's;
+    busy share, kernels and syncs come from a 2-sweep solve."""
+    from tensor_networks_tpu_torch import packed
+
+    f32 = torch.float32
+    op = tnt.qtt_screened_laplacian(R64_K, delta=1.0, dtype=f32)
+    rhs = packed.pad_rank(tnt.qtt_exponential(R64_K, c=3.0, dtype=f32), R64_RANK)
+    s_op = op.mids.shape[1]
+    calls = {
+        "als": lambda sw: tnt.als_solve(op, rhs, rhs, sweeps=sw, tol=-1.0, spd=True,
+                                        cg_iters=R64_ITERS),
+        "eigsh": lambda sw: tnt.als_eigsh(op, rhs, sweeps=sw, tol=-1.0,
+                                          lanczos_iters=R64_ITERS),
+    }
+    flops = {"als": _als_sweep_flops(R64_K, R64_RANK, 2, s_op, R64_ITERS),
+             "eigsh": _eig_sweep_flops(R64_K, R64_RANK, 2, s_op, R64_ITERS)}
+    lo, hi = R64_BUDGETS
+    rows = {}
+    for name, fn in calls.items():
+        walls = {}
+        for sw in (lo, hi):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(sw)
+            torch.cuda.synchronize()
+            walls[sw] = time.perf_counter() - t0
+        per = (walls[hi] - walls[lo]) / (hi - lo)
+        _, row = _solver_run(lambda: fn(2), zp, ev)
+        row.update(sweeps=2, walls_s=walls, ms_per_sweep=1e3 * per,
+                   gflops=flops[name] / per / 1e9, event_ms_per_sweep=row["event_ms"] / 2)
+        _check_syncs(f"8c {name}", row, True)
+        rows[name] = (row, out)
+    als_row, (x, res, _) = rows["als"]
+    rhs_cpu = packed.PackedTT(*(t.double().cpu() for t in rhs))
+    rhs_norm = float(packed.norm_exact(rhs_cpu))
+    als_row["resid"] = res / rhs_norm
+    als_row["recomputed"] = _recomputed_residual(
+        tnt, tnt.qtt_screened_laplacian(R64_K, delta=1.0, device="cpu"), rhs_cpu, x) / rhs_norm
+    eig_row, (_, lam, _) = rows["eigsh"]
+    eig_row["lam"] = lam
+    eig_row["err"] = abs(lam - (1.0 + 2 - 2 * math.cos(math.pi / (2**R64_K + 1))))
+    for what, got, bar in (("ALS relative residual", als_row["resid"], R64_ALS_BAR),
+                           ("ALS recomputed residual", als_row["recomputed"],
+                            3 * als_row["resid"] + 1e-7),
+                           ("eigsh |lam - exact|", eig_row["err"], R64_EIG_BAR)):
+        if not got <= bar:
+            raise AssertionError(f"phase 8 8c: {what} {got:.3e} above {bar:.3e}")
+    return {"als": als_row, "eigsh": eig_row}
+
+
+def _eigsh_k_leg(tnt, zp, ev, pts):
+    """8d: als_eigsh_k(k=3, slots) on qtt_screened_laplacian(14, delta=0.3)
+    from pad_rank(qtt_exponential(14, c=2), 8), f64: the eigenvalues
+    against delta + 2 - 2 cos(j pi / (2^14 + 1)), j = 1..3, and the
+    pairwise |<v_i, v_j>| through H1 (counters reset before the solve
+    and read after it)."""
+    from tensor_networks_tpu_torch import packed
+
+    K, delta = 14, 0.3
+    op = tnt.qtt_screened_laplacian(K, delta=delta)
+    x0 = packed.pad_rank(tnt.qtt_exponential(K, c=2.0), 8)
+    (vecs, vals), row = _solver_run(lambda: tnt.als_eigsh_k(op, x0, 3), zp, ev)
+    if row["launches"]["zipper"] == 0:  # the clean Rayleigh quotients' H1 calls
+        raise AssertionError(f"phase 8 8d launched no H1: {row['launches']}")
+    exact = [delta + 2 - 2 * math.cos(j * math.pi / (2**K + 1)) for j in (1, 2, 3)]
+    row["vals"] = vals
+    row["rel_err"] = [abs(v - e) / e for v, e in zip(vals, exact)]
+    _reset_counts(zp, ev)
+    row["overlaps"] = [abs(float(packed.inner(vecs[i], vecs[j])))
+                       for i in range(3) for j in range(i + 1, 3)]
+    row["launches_overlaps"] = _counts(zp, ev)
+    row["sweeps"] = row["syncs"].get("stop test", 0)  # over the three solves
+    row["ms_per_sweep"] = row["event_ms"] / max(row["sweeps"], 1)
+    row["syncs_per_sweep"] = {k: v / max(row["sweeps"], 1) for k, v in row["syncs"].items()}
+    if row["launches_overlaps"]["zipper"] != 3:
+        raise AssertionError(f"phase 8 8d overlaps: launches {row['launches_overlaps']}")
+    if not (max(row["rel_err"]) <= EIGK_BAR and max(row["overlaps"]) <= EIGK_BAR):
+        raise AssertionError(f"phase 8 8d: eigenvalue errors {row['rel_err']}, "
+                             f"overlaps {row['overlaps']}, bar {EIGK_BAR:g}")
+    bits = torch.from_numpy((pts[:, None] >> np.arange(K)[None, :]) & 1).to(vecs[0].first.device)
+    return row, _h1_h2_at(zp, ev, vecs[0], vecs[1], bits)
+
+
+def _adaptive_leg(tnt, zp, ev):
+    """8e: als_solve_adaptive on qtt_screened_laplacian_nd(bits, 3,
+    delta=1), rhs qtt_exponential_nd(bits, (2, 3, 1.5)), eps 1e-10, rank
+    2 to 16, 2 sweeps a rank, enrichment on and off, f64: at 3 bits per
+    axis (``tests/test_als_solver.py:218``: both reach 1e-10, enrichment
+    in no more sweeps) and at 5, where rank 16 cannot reach 1e-10 and
+    each run is held to its residual in the port's CPU rehearsal."""
+    from tensor_networks_tpu_torch import packed
+
+    rows = {}
+    for bits, bars in ADAPTIVE_RUNS:
+        op = tnt.qtt_screened_laplacian_nd(bits, 3, delta=1.0)
+        rhs = tnt.qtt_exponential_nd(bits, (2.0, 3.0, 1.5))
+        op_cpu = tnt.qtt_screened_laplacian_nd(bits, 3, delta=1.0, device="cpu")
+        rhs_cpu = tnt.qtt_exponential_nd(bits, (2.0, 3.0, 1.5), device="cpu")
+        rhs_norm = float(packed.norm_exact(rhs_cpu))
+        for enrich in (True, False):
+            key = f"{bits}bit_{'enrich' if enrich else 'pad'}"
+            (x, res, hist), row = _solver_run(lambda: tnt.als_solve_adaptive(
+                op, rhs, eps=1e-10, rank=2, max_rank=16, sweeps_per_rank=2, enrich=enrich),
+                zp, ev)
+            row.update(sweeps=len(hist), rank=x.rank, resid=res / rhs_norm,
+                       recomputed=_recomputed_residual(tnt, op_cpu, rhs_cpu, x) / rhs_norm)
+            row["ms_per_sweep"] = row["event_ms"] / len(hist)
+            row["syncs_per_sweep"] = {k: v / len(hist) for k, v in row["syncs"].items()}
+            bar = bars["enrich" if enrich else "pad"]
+            if not (row["resid"] <= bar and row["recomputed"] <= 3 * row["resid"] + 1e-14):
+                raise AssertionError(f"phase 8 8e {key}: residual {row['resid']:.3e} reported, "
+                                     f"{row['recomputed']:.3e} recomputed, bar {bar:.3e}")
+            rows[key] = row
+        if rows[f"{bits}bit_enrich"]["sweeps"] > rows[f"{bits}bit_pad"]["sweeps"]:
+            raise AssertionError(f"phase 8 8e at {bits} bits: enrichment took more sweeps "
+                                 f"than padding")
+    return rows
+
+
+def _print_solver_row(name, row):
+    syncs = ", ".join(f"{k} {v:.2f}" for k, v in row.get("syncs_per_sweep", {}).items())
+    extra = {k: row[k] for k in ("resid", "recomputed", "err", "lam", "rel_err", "overlaps",
+                                 "gflops", "rank", "launches") if k in row}
+    print(f"  {name}: wall {row['wall_s']:.3f} s, {row.get('sweeps')} sweeps, "
+          f"{row.get('ms_per_sweep', float('nan')):.2f} ms a sweep (CUDA events, "
+          f"{row['event_ms']:.1f} ms a call); device busy {row['busy_ms']:.1f} ms "
+          f"({100 * row['busy_share']:.0f}% of the wall) over {row['kernels']} kernels; "
+          f"host syncs {row['syncs']} ({syncs} a sweep); top kernels "
+          f"{[(n, round(ms, 2), c) for n, ms, c in row['top']]}; {extra}")
+
+
+def phase_solvers(zp, ev):
+    """The ALS linear solver and the DMRG eigensolver on the card at
+    bench.py's solver configurations (8a-8e), each leg to its bars."""
+    import tensor_networks_tpu_torch as tnt
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 8 runs with TF32 off")
+    pts_rng = np.random.default_rng(SEED + 40)
+    print("phase 8 ALS and DMRG on the card:")
+    t0 = time.perf_counter()
+    # the dense local solve is a minimum-norm SVD solve: gels (all that
+    # torch.linalg.lstsq has on CUDA) assumes full rank, and the end
+    # bonds' locals are singular; refused for the whole phase
+    real_lstsq = torch.linalg.lstsq
+
+    def refuse_lstsq(*args, **kw):
+        raise AssertionError("phase 8: torch.linalg.lstsq called")
+
+    torch.linalg.lstsq = refuse_lstsq
+    try:
+        # first calls set up cuSOLVER and cuBLAS: one small solve of each
+        # kind and dtype before the timed legs
+        for dtype in (torch.float64, torch.float32):
+            op = tnt.qtt_screened_laplacian(6, delta=1.0, dtype=dtype)
+            x0 = tnt.packed.pad_rank(tnt.qtt_exponential(6, c=3.0, dtype=dtype), 8)
+            tnt.als_solve(op, x0, x0, sweeps=1)
+            tnt.als_solve(op, x0, x0, sweeps=1, dense_limit=0, cg_iters=2, spd=True)
+            tnt.als_eigsh(op, x0, sweeps=1)
+            tnt.als_eigsh(op, x0, sweeps=1, dense_limit=0, lanczos_iters=2)
+        torch.cuda.synchronize()
+        print(f"  warm-up (K=6 solves of each kind): {time.perf_counter() - t0:.2f} s")
+        out, kernels_at = {}, {}
+        out["8a"], kernels_at = _als22_leg(tnt, zp, ev, pts_rng.integers(0, 2**22, B))
+        for k, r in out["8a"].items():
+            if isinstance(r, dict):
+                _print_solver_row(f"8a K=22 rank 8 {k}", r)
+        print(f"  8a ms a sweep, fused over host: f64 {out['8a']['f64_fused_over_host']:.3f}, "
+              f"f32 {out['8a']['f32_fused_over_host']:.3f}")
+        out["8b"] = _solver_cpu_leg(tnt, zp, ev)
+        for k, r in out["8b"].items():
+            _print_solver_row(f"8b {k}", r)
+        out["8c"] = _r64_leg(tnt, zp, ev)
+        for k, r in out["8c"].items():
+            _print_solver_row(f"8c K=14 rank 64 f32 {k} (slope of {R64_BUDGETS})", r)
+        out["8d"], kernels_at["8d"] = _eigsh_k_leg(tnt, zp, ev, pts_rng.integers(0, 2**14, B))
+        _print_solver_row("8d als_eigsh_k k=3 K=14 rank 8 f64", out["8d"])
+        out["8e"] = _adaptive_leg(tnt, zp, ev)
+        for k, r in out["8e"].items():
+            _print_solver_row(f"8e als_solve_adaptive {k}", r)
+    finally:
+        torch.linalg.lstsq = real_lstsq
+    print("  torch.linalg.lstsq refused throughout phase 8: never called")
+    for k, r in kernels_at.items():
+        h1, h2 = r["h1"], r["h2"]
+        print(f"  {k}: H1 kernel {h1['ms']:.4f} ms, plain {h1['plain_ms']:.4f}, bound "
+              f"{h1['bound_ms']:.6f} by {h1['bound_by']}, err {h1['rel_err']:.1e}; H2 kernel "
+              f"{h2['ms']:.4f} ms, plain {h2['plain_ms']:.4f}, bound {h2['bound_ms']:.6f} by "
+              f"{h2['bound_by']}, err {h2['rel_err']:.1e}")
+    wall = time.perf_counter() - t0
+    print(f"  phase 8 wall {wall:.1f} s")
+    keep = ("wall_s", "sweeps", "ms_per_sweep", "busy_share", "kernels", "syncs", "resid",
+            "recomputed", "err", "lam", "rel_err", "overlaps", "gflops", "rank")
+    line = {leg: {k: ({f: _sig(v) for f, v in r.items() if f in keep}
+                      if isinstance(r, dict) else _sig(r)) for k, r in rows.items()}
+            for leg, rows in out.items() if leg != "8d"}
+    line["8d"] = {f: _sig(v) for f, v in out["8d"].items() if f in keep}
+    line["wall_s"] = _sig(wall)
+    print(json.dumps({"solvers": line}, separators=(",", ":")))
+    # every solve's launches (H1 takes 8d's clean Rayleigh quotients), and
+    # H2's in the check of 8a's solutions
+    launches = {f"{leg}_{k}": r["launches"] for leg in ("8a", "8b", "8c", "8e")
+                for k, r in out[leg].items() if isinstance(r, dict)}
+    launches["8d"] = out["8d"]["launches"]
+    launches.update({f"8a_{k}_check": r["launches_grid"] for k, r in out["8a"].items()
+                     if isinstance(r, dict)})
+    return out, kernels_at, launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -2091,13 +2554,72 @@ def _kernel_numbers(t):
            "bound_by": t["bound_by"], "library_ms": None}
     for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
                         ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms")),
-                        ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
+                        ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                        ("solvers", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
         if group in t:
             out[group] = {k: {f: v[f] for f in keep} for k, v in t[group].items()}
     return out
 
 
+def rehearse(leg: str) -> int:
+    """``python3 chip_smoke.py --rehearse LEG``: one phase-8 leg (8a-8e)
+    on the CPU, which is how 8c's and 8e's bars were set.  The
+    constructors build on the CPU, and the card-only parts are stubbed:
+    CUDA events and synchronisation (host clock instead), torch.profiler
+    and the sync counter (nothing counted), the kernels' launch counters
+    and timings.  The bars are lifted.  Prints the leg's rows and exits
+    3, with no result line."""
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import types
+
+    global R64_ALS_BAR, R64_EIG_BAR, EIGK_BAR, ADAPTIVE_RUNS
+
+    class HostEvent:
+        def __init__(self, enable_timing=True):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return 1e3 * (other.t - self.t)
+
+    def on_cpu(device=None):
+        return torch.device("cpu" if device is None else device)
+
+    types.resolve_device.__code__ = on_cpu.__code__
+    torch.cuda.Event, torch.cuda.synchronize = HostEvent, lambda *a: None
+    none = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "-", "rel_err": 0.0,
+            "max_abs_err": 0.0}
+    g = globals()
+    g["_device_profile"] = lambda fn: (fn(), 0.0, 0, [])
+    g["_sync_sites"] = lambda fn: ({}, fn())
+    g["_check_syncs"] = lambda name, row, fused: row.setdefault("syncs_per_sweep", {})
+    g["_counts"] = lambda zp, ev: {"zipper": 3, "chain": 0, "evaluate": 1, "tiles": 1}
+    g["_reset_counts"] = lambda zp, ev: None
+    g["_h1_h2_at"] = lambda zp, ev, x, y, idx: {"h1": dict(none), "h2": dict(none)}
+    R64_ALS_BAR = R64_EIG_BAR = EIGK_BAR = math.inf
+    ADAPTIVE_RUNS = tuple((bits, {"enrich": math.inf, "pad": math.inf})
+                          for bits, _ in ADAPTIVE_RUNS)
+    pts = np.random.default_rng(SEED + 40).integers(0, 2**14, B)
+    legs = {"8a": lambda: _als22_leg(tnt, None, None, pts * 256)[0],
+            "8b": lambda: _solver_cpu_leg(tnt, None, None),
+            "8c": lambda: _r64_leg(tnt, None, None),
+            "8d": lambda: _eigsh_k_leg(tnt, None, None, pts)[0],
+            "8e": lambda: _adaptive_leg(tnt, None, None)}
+    t0 = time.perf_counter()
+    rows = legs[leg]()
+    for name, row in (rows.items() if "wall_s" not in rows else [(leg, rows)]):
+        if isinstance(row, dict):
+            print(name, {k: v for k, v in row.items() if k not in ("top", "syncs")})
+    print(f"rehearsal of {leg} on the CPU, {torch.get_num_threads()} threads: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 3
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rehearse"]:
+        return rehearse(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2151,6 +2673,9 @@ def main() -> int:
     for name, key in (("inner", "h1"), ("evaluate", "h2")):
         times[name]["gmres"] = {k: r["kernels_at"][key] for k, r in gmres_out.items()
                                 if k != "C"}
+    _, solver_kernels, solver_launches = phase_solvers(zp, ev)
+    for name, key in (("inner", "h1"), ("evaluate", "h2")):
+        times[name]["solvers"] = {k: r[key] for k, r in solver_kernels.items()}
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
@@ -2159,14 +2684,16 @@ def main() -> int:
                      ":229 tt_inner_pallas_fused",
          "launches": launches["zipper"], **_kernel_numbers(times["inner"]),
          "launches_rounding": round_launches["zipper"],
-         "launches_gmres": {k: v["zipper"] for k, v in gmres_launches.items()}},
+         "launches_gmres": {k: v["zipper"] for k, v in gmres_launches.items()},
+         "launches_solvers": {k: v["zipper"] for k, v in solver_launches.items()}},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
                      ":229 tt_inner_pallas_fused, above rank 128",
          "launches": launches["chain"], **_kernel_numbers(times["chain"]),
          "launches_rounding": round_launches["chain"],
-         "launches_gmres": {k: v["chain"] for k, v in gmres_launches.items()}},
+         "launches_gmres": {k: v["chain"] for k, v in gmres_launches.items()},
+         "launches_solvers": {k: v["chain"] for k, v in solver_launches.items()}},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
@@ -2174,14 +2701,16 @@ def main() -> int:
          "launches": launches["evaluate"], **_kernel_numbers(times["evaluate"]),
          "launches_cross": cross_launches["by_dtype"],
          "launches_rounding": round_launches["evaluate"],
-         "launches_gmres": {k: v["evaluate"] for k, v in gmres_launches.items()}},
+         "launches_gmres": {k: v["evaluate"] for k, v in gmres_launches.items()},
+         "launches_solvers": {k: v["evaluate"] for k, v in solver_launches.items()}},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
          "launches": launches["tiles"], **_kernel_numbers(times["tiles"]),
          "launches_cross": cross_launches["tiles"],
          "launches_rounding": round_launches["tiles"],
-         "launches_gmres": {k: v["tiles"] for k, v in gmres_launches.items()}},
+         "launches_gmres": {k: v["tiles"] for k, v in gmres_launches.items()},
+         "launches_solvers": {k: v["tiles"] for k, v in solver_launches.items()}},
     ]
     print(json.dumps({"kernels": [_sig(k) for k in kernels]}, separators=(",", ":")))
     print(card)

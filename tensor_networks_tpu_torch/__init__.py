@@ -6,7 +6,9 @@ the graph rewrites (svd, qr, merge, orthonormalize, round), the TT
 constructors and the four TT rounding families, TT-operators and
 TT-GMRES (graph and packed), uniform-train fast paths (zipper inner
 product, fixed-rank rounding sweep), the packed device TT algebra, the
-QTT constructors and cross approximation
+QTT constructors, the ALS linear solver and DMRG eigensolver
+(:mod:`tensor_networks_tpu_torch.ops.als`, :mod:`~.ops.eigen`) and cross
+approximation
 (:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
@@ -76,6 +78,11 @@ from tensor_networks_tpu_torch.ops import (
     qtt_shift,
     qtt_tridiagonal,
     qtt_trig,
+    als_solve,
+    als_solve_adaptive,
+    als_eigsh,
+    als_eigsh_adaptive,
+    als_eigsh_k,
     tt_inner_fast,
     tt_inner_fn,
     stack_tt_cores,
@@ -145,6 +152,11 @@ __all__ = [
     "qtt_shift",
     "qtt_tridiagonal",
     "qtt_trig",
+    "als_solve",
+    "als_solve_adaptive",
+    "als_eigsh",
+    "als_eigsh_adaptive",
+    "als_eigsh_k",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

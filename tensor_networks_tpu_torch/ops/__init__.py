@@ -1,6 +1,6 @@
 """TT algebra, the four rounding families, TT-operators and GMRES,
-fused train operations, the packed device TT algebra and the QTT
-constructors."""
+fused train operations, the packed device TT algebra, the QTT
+constructors, and the ALS linear solver and DMRG eigensolver."""
 
 from tensor_networks_tpu_torch.ops.tt import (
     tt_rank1,
@@ -58,6 +58,12 @@ from tensor_networks_tpu_torch.ops.qtt import (
     qtt_tridiagonal,
     qtt_trig,
 )
+from tensor_networks_tpu_torch.ops.als import als_solve, als_solve_adaptive
+from tensor_networks_tpu_torch.ops.eigen import (
+    als_eigsh,
+    als_eigsh_adaptive,
+    als_eigsh_k,
+)
 from tensor_networks_tpu_torch.ops.fast import (
     tt_inner_fast,
     tt_inner_fn,
@@ -111,6 +117,11 @@ __all__ = [
     "qtt_shift",
     "qtt_tridiagonal",
     "qtt_trig",
+    "als_solve",
+    "als_solve_adaptive",
+    "als_eigsh",
+    "als_eigsh_adaptive",
+    "als_eigsh_k",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

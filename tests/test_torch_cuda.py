@@ -539,3 +539,129 @@ def test_operator_constructors_on_the_card(dev):
     for cores in built:
         for x in cores:
             assert x.device == dev and x.is_contiguous() and 0 not in x.stride()
+
+
+def test_min_norm_local_solve_on_a_singular_matrix(dev):
+    """The dense ALS local solve on a singular system (rank 5 of 8, f64)
+    gives the minimum-norm least-squares solution on the card, as on the
+    CPU and as the pseudo-inverse does."""
+    from tensor_networks_tpu_torch.ops import als
+
+    rng = np.random.default_rng(5)
+    u = rng.standard_normal((8, 5))
+    a = u @ rng.standard_normal((5, 8))
+    b = rng.standard_normal(8)
+    want = np.linalg.pinv(a) @ b
+    for where in (dev, "cpu"):
+        got = als._lstsq_min_norm(torch.tensor(a, device=where),
+                                  torch.tensor(b, device=where)).cpu().numpy()
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_als_on_singular_locals_never_calls_gels(dev, monkeypatch):
+    """``tests/test_als_solver.py:167``'s system (K=6, rank 6: the end
+    bonds' locals are singular) on the card: the dense path and CG from
+    zero (1000 steps, SPD and normal equations) each reach 1e-10 of
+    |rhs|, with ``torch.linalg.lstsq`` never called."""
+    from tensor_networks_tpu_torch.ops import als, qtt
+
+    def refuse(*args, **kw):
+        raise AssertionError("torch.linalg.lstsq called")
+
+    monkeypatch.setattr(torch.linalg, "lstsq", refuse)
+    op = qtt.qtt_screened_laplacian(6, delta=1.0)
+    rhs = qtt.qtt_exponential(6, c=3.0)
+    b = float(tpk.norm_exact(rhs))
+    for kw in ({}, dict(dense_limit=0, cg_iters=1000, spd=True),
+               dict(dense_limit=0, cg_iters=1000, spd=False)):
+        x, res, _ = als.als_solve(op, rhs, tpk.pad_rank(rhs, 6), sweeps=6, tol=1e-11 * b, **kw)
+        assert x.first.is_cuda and res / b < 1e-10, (kw, res / b)
+
+
+def _packed_on(x, where):
+    return type(x)(*(t.to(where) for t in x))
+
+
+def test_fused_solvers_on_the_card_match_the_cpu(dev):
+    """Fused ``als_solve`` (dense locals) and ``als_eigsh`` at K=6 in f64
+    on the card against the port on the CPU: represented vectors to
+    1e-10 (the eigenvector up to sign), eigenvalues to 1e-10."""
+    from tensor_networks_tpu_torch.ops import als, eigen, qtt
+
+    out = {}
+    for where in (dev, "cpu"):
+        op = qtt.qtt_screened_laplacian(6, delta=1.0, device=where)
+        rhs = qtt.qtt_exponential(6, c=3.0, device=where)
+        x, res, _ = als.als_solve(op, rhs, tpk.pad_rank(rhs, 6), sweeps=4, tol=0.0)
+        v, lam, _ = eigen.als_eigsh(op, tpk.pad_rank(rhs, 6), sweeps=6)
+        out[str(where)] = (_packed_on(x, "cpu"), _packed_on(v, "cpu"), lam)
+    (xc, vc, lc), (xg, vg, lg) = out["cpu"], out[str(dev)]
+    for a, b, sign_free in ((xg, xc, False), (vg, vc, True)):
+        ref = float(tpk.norm_exact(b))
+        diff = float(tpk.norm_exact(tpk.add(a, tpk.scale(b, -1.0))))
+        if sign_free:
+            diff = min(diff, float(tpk.norm_exact(tpk.add(a, b))))
+        assert diff <= 1e-10 * ref
+    assert abs(lg - lc) <= 1e-10 * abs(lc)
+
+
+def _sync_kinds(fn):
+    """Host syncs of one call (``torch.cuda.set_sync_debug_mode``), each
+    put down to the innermost frame outside torch: stop test, record
+    fetch, cuSOLVER status (svd, eigh) or that frame's ``file:line``."""
+    import os
+    import traceback
+    import warnings
+
+    torch_dir = os.path.dirname(torch.__file__)
+    kinds = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frame = next(f for f in reversed(traceback.extract_stack())
+                     if not f.filename.startswith(torch_dir)
+                     and not f.filename.endswith("warnings.py") and f.name != "hook")
+        if frame.name == "_sync_kinds":  # setting the debug mode synchronises
+            return
+        kind = next((k for pat, k in (("bool(flag)", "stop"), (".cpu()", "fetch"),
+                                      ("linalg.svd", "svd"), ("linalg.eigh", "eigh"))
+                     if pat in (frame.line or "")), f"{frame.filename}:{frame.lineno}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return kinds
+
+
+def test_fused_sweeps_read_the_card_once_each(dev):
+    """A fused solve reads the card once a sweep (its stop test) and once
+    for its record; the rest are cuSOLVER's status checks: the same
+    number for every local solve (2d per ALS sweep, 2d - 1 per eigsh
+    sweep; eigsh's are three eighs each)."""
+    from tensor_networks_tpu_torch.ops import als, eigen, qtt
+
+    d = 6
+    op = qtt.qtt_screened_laplacian(d, delta=1.0)
+    rhs = qtt.qtt_exponential(d, c=3.0)
+    x0 = tpk.pad_rank(rhs, 6)
+    runs = {"als": lambda: als.als_solve(op, rhs, x0, sweeps=3, tol=0.0),
+            "eigsh": lambda: eigen.als_eigsh(op, x0, sweeps=3, tol=-1.0),
+            "lanczos": lambda: eigen.als_eigsh(op, x0, sweeps=3, tol=-1.0, dense_limit=0,
+                                               lanczos_iters=8)}
+    for name, call in runs.items():
+        call()  # warm: the Lanczos seeds and cuSOLVER handles
+        kinds = _sync_kinds(call)
+        info = kinds.pop("svd" if name == "als" else "eigh", 0)
+        assert kinds == {"stop": 3, "fetch": 1}, (name, kinds)
+        locals_ = 3 * (2 * d if name == "als" else 2 * d - 1)
+        assert info > 0 and info % locals_ == 0, (name, info)
+        if name != "als":
+            assert info == 3 * locals_
