@@ -81,18 +81,20 @@ def _whitener(G):
     1/sqrt(e) -- in the JAX package a hard-coded 1e-12 let f32 noise
     (~1e-7) through and the spurious directions captured the sweep (lam
     1.2999998 vs true 0.302336 on the K=6 regression config in f32).
-    Metrics narrower than float64 are factorized in float64 and W cast
-    back: a zero-padded bond's Gram holds entries below float32's
-    smallest normal number, on which LAPACK's float32 ``eigh`` (torch's
-    CPU build, 4 threads) returned NaN eigenvalues with no error
-    (``tests/test_torch_eigen.py::test_f32_metric_with_subnormal_entries``),
-    as the rounding families' Grams are (``kernels/linalg.py``).
+    Entries below eps^2 of the largest are flushed to zero first: that
+    moves no eigenvalue by more than ``eigh``'s own roundoff, and a
+    zero-padded bond's Gram holds entries near float32's smallest normal
+    number, on which torch's CPU LAPACK float32 ``eigh`` returned NaN
+    eigenvalues with no error
+    (``tests/test_torch_eigen.py::test_f32_metric_with_subnormal_entries``).
     """
-    e, U = torch.linalg.eigh(0.5 * (G + G.T).to(torch.float64))
-    cut = 100.0 * torch.finfo(G.dtype).eps
-    valid = e > cut * torch.max(torch.abs(e))
+    eps = torch.finfo(G.dtype).eps
+    S = 0.5 * (G + G.T)
+    S = torch.where(torch.abs(S) < eps * eps * torch.max(torch.abs(S)), 0.0, S)
+    e, U = torch.linalg.eigh(S)
+    valid = e > 100.0 * eps * torch.max(torch.abs(e))
     inv_sqrt = torch.where(valid, 1.0 / torch.sqrt(torch.where(valid, e, 1.0)), 0.0)
-    return (U * inv_sqrt[None, :]).to(G.dtype), valid
+    return U * inv_sqrt[None, :], valid
 
 
 def _local_ground_state(L, ak, R, Lg, Rg, pens, shift):
@@ -288,6 +290,19 @@ def _local_ground_state_mass(L, ak, R, Lm, mk, Rm, pens, shift):
     return w[0], W @ y[:, 0]
 
 
+def _carry_right(vec, q, nxt):
+    """``nxt`` times the factor ``q^T vec`` that left-orthogonalizing
+    ``vec`` into ``q`` leaves behind: the train is then the one the
+    sweep holds, and the next Lanczos local starts from it."""
+    return torch.einsum("bc,cks->bks", torch.einsum("ajb,ajc->bc", q, vec), nxt)
+
+
+def _carry_left(prev, vec, q):
+    """Mirror of :func:`_carry_right` for right-orthogonalization:
+    ``prev`` times ``vec q^T``."""
+    return torch.einsum("sia,ab->sib", prev, torch.einsum("ajc,bjc->ab", vec, q))
+
+
 # -- fused sweep ----------------------------------------------------------------
 # Same treatment as als._als_sweep_impl: boundary cores explicit, mid
 # cores a Python loop over the stacks, the right env chains handed from
@@ -298,7 +313,13 @@ def _local_ground_state_mass(L, ak, R, Lm, mk, Rm, pens, shift):
 # falls back to the host loop otherwise).  On padded (rank-deficient)
 # trains the local eigenbases match the host loop only up to whitener
 # gauge; the contract is identical Rayleigh descent on full-rank trains
-# and equal convergence otherwise.
+# and equal convergence otherwise.  Each orthogonalization's factor is
+# carried into the next core (_carry_right, _carry_left) before that
+# core's local solve, so a Lanczos local warm-starts from the iterate the
+# sweep holds and its Ritz value cannot rise above the iterate's
+# Rayleigh quotient.  The JAX package warm-starts from the core as it
+# was before the factor moved: at K=14 rank 64 in f32 with 48 steps its
+# energy after a sweep ended above the start's (ROADMAP.md section 3).
 
 
 class _EigHelpers:
@@ -419,7 +440,9 @@ def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
     # left -> right half
     pens = h.pens_of(h.p_seed(), Rb, m0, v0, x0c.numel())
     _, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift, warm=x0c)
-    q0 = _left_orth(vec.reshape(x0c.shape))
+    vec = vec.reshape(x0c.shape)
+    q0 = _left_orth(vec)
+    warm = _carry_right(vec, q0, X[0] if m else xlc)
     L = _adv_left(one3, q0, a0)
     Lg = h.g_adv_l(h.g_seed(), q0, m0)
     Lb = h.p_adv_l(h.p_seed(), q0, m0, v0)
@@ -427,21 +450,25 @@ def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
     for j in range(m):
         pens = h.pens_of(Lb, rbs_mid[j], mk(j), vk(j), X[j].numel())
         _, vec = h.solve(L, rs_mid[j], Lg, rgs_mid[j], Am[j], mk(j), pens, shift,
-                         warm=X[j])
-        qk = _left_orth(vec.reshape(X[j].shape))
+                         warm=warm)
+        vec = vec.reshape(X[j].shape)
+        qk = _left_orth(vec)
+        warm = _carry_right(vec, qk, X[j + 1] if j + 1 < m else xlc)
         Q.append(qk)
         ls_mid.append((L, Lg, Lb))
         L, Lg, Lb = (_adv_left(L, qk, Am[j]), h.g_adv_l(Lg, qk, mk(j)),
                      h.p_adv_l(Lb, qk, mk(j), vk(j)))
 
     pens = h.pens_of(Lb, h.p_seed(), ml, vl, xlc.numel())
-    lam_f, vec = h.solve(L, one3, Lg, h.g_seed(), al, ml, pens, shift, warm=xlc)
+    lam_f, vec = h.solve(L, one3, Lg, h.g_seed(), al, ml, pens, shift, warm=warm)
 
     # right -> left half.  The host loop re-solves the last core here,
     # but the eigen local solve does not depend on the current core
     # value on the dense path, so the re-solve is the forward one --
     # skipped
-    vlq = _right_orth(vec.reshape(xlc.shape))
+    vec = vec.reshape(xlc.shape)
+    vlq = _right_orth(vec)
+    warm = _carry_left(Q[-1] if m else q0, vec, vlq)
     R = _adv_right(one3, vlq, al)
     Rg = h.g_adv_r(h.g_seed(), vlq, ml)
     Rb = h.p_adv_r(h.p_seed(), vlq, ml, vl)
@@ -450,13 +477,15 @@ def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
         rs_mid[j], rgs_mid[j], rbs_mid[j] = R, Rg, Rb
         Lk, Lgk, Lbk = ls_mid[j]
         pens = h.pens_of(Lbk, Rb, mk(j), vk(j), Q[j].numel())
-        _, vec = h.solve(Lk, R, Lgk, Rg, Am[j], mk(j), pens, shift, warm=Q[j])
-        V[j] = _right_orth(vec.reshape(Q[j].shape))
+        _, vec = h.solve(Lk, R, Lgk, Rg, Am[j], mk(j), pens, shift, warm=warm)
+        vec = vec.reshape(Q[j].shape)
+        V[j] = _right_orth(vec)
+        warm = _carry_left(Q[j - 1] if j else q0, vec, V[j])
         R, Rg, Rb = (_adv_right(R, V[j], Am[j]), h.g_adv_r(Rg, V[j], mk(j)),
                      h.p_adv_r(Rb, V[j], mk(j), vk(j)))
 
     pens = h.pens_of(h.p_seed(), Rb, m0, v0, q0.numel())
-    lam_b, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift, warm=q0)
+    lam_b, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift, warm=warm)
     return (vec.reshape(q0.shape), torch.stack(V), vlq, lam_f, lam_b,
             (rs_mid, rgs_mid, rbs_mid, (R, Rg, Rb)))
 
@@ -694,9 +723,10 @@ def als_eigsh(
                 k,
             )
             lam_k, vec = solve_local(k, ls[-1], rs[k], lgs[-1], rgs[k], pens)
-            xs[k] = vec.reshape(xs[k].shape)
+            xs[k] = vec = vec.reshape(xs[k].shape)
             if k < d - 1:
-                xs[k] = _left_orth(xs[k])
+                xs[k] = _left_orth(vec)
+                xs[k + 1] = _carry_right(vec, xs[k], xs[k + 1])
                 ls.append(_adv_left(ls[-1], xs[k], as_[k]))
                 lgs.append(metric_adv_l(lgs[-1], k))
                 for j in range(len(vs)):
@@ -712,9 +742,10 @@ def als_eigsh(
                 k,
             )
             lam_k, vec = solve_local(k, ls[k], rev_rs[-1], lgs[k], rev_rgs[-1], pens)
-            xs[k] = vec.reshape(xs[k].shape)
+            xs[k] = vec = vec.reshape(xs[k].shape)
             if k > 0:
-                xs[k] = _right_orth(xs[k])
+                xs[k] = _right_orth(vec)
+                xs[k - 1] = _carry_left(xs[k - 1], vec, xs[k])
                 rev_rs.append(_adv_right(rev_rs[-1], xs[k], as_[k]))
                 rev_rgs.append(metric_adv_r(rev_rgs[-1], k))
                 for j in range(len(vs)):

@@ -605,48 +605,13 @@ def test_fused_solvers_on_the_card_match_the_cpu(dev):
     assert abs(lg - lc) <= 1e-10 * abs(lc)
 
 
-def _sync_kinds(fn):
-    """Host syncs of one call (``torch.cuda.set_sync_debug_mode``), each
-    put down to the innermost frame outside torch: stop test, record
-    fetch, cuSOLVER status (svd, eigh) or that frame's ``file:line``."""
-    import os
-    import traceback
-    import warnings
-
-    torch_dir = os.path.dirname(torch.__file__)
-    kinds = {}
-
-    def hook(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        frame = next(f for f in reversed(traceback.extract_stack())
-                     if not f.filename.startswith(torch_dir)
-                     and not f.filename.endswith("warnings.py") and f.name != "hook")
-        if frame.name == "_sync_kinds":  # setting the debug mode synchronises
-            return
-        kind = next((k for pat, k in (("bool(flag)", "stop"), (".cpu()", "fetch"),
-                                      ("linalg.svd", "svd"), ("linalg.eigh", "eigh"))
-                     if pat in (frame.line or "")), f"{frame.filename}:{frame.lineno}")
-        kinds[kind] = kinds.get(kind, 0) + 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = hook
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return kinds
-
-
 def test_fused_sweeps_read_the_card_once_each(dev):
     """A fused solve reads the card once a sweep (its stop test) and once
     for its record; the rest are cuSOLVER's status checks: the same
     number for every local solve (2d per ALS sweep, 2d - 1 per eigsh
     sweep; eigsh's are three eighs each)."""
     from tensor_networks_tpu_torch.ops import als, eigen, qtt
+    from tensor_networks_tpu_torch.syncs import host_syncs
 
     d = 6
     op = qtt.qtt_screened_laplacian(d, delta=1.0)
@@ -658,9 +623,9 @@ def test_fused_sweeps_read_the_card_once_each(dev):
                                                lanczos_iters=8)}
     for name, call in runs.items():
         call()  # warm: the Lanczos seeds and cuSOLVER handles
-        kinds = _sync_kinds(call)
-        info = kinds.pop("svd" if name == "als" else "eigh", 0)
-        assert kinds == {"stop": 3, "fetch": 1}, (name, kinds)
+        kinds, _ = host_syncs(call)
+        info = kinds.pop("svd info" if name == "als" else "eigh info", 0)
+        assert kinds == {"stop test": 3, "record fetch": 1}, (name, kinds)
         locals_ = 3 * (2 * d if name == "als" else 2 * d - 1)
         assert info > 0 and info % locals_ == 0, (name, info)
         if name != "als":

@@ -17,7 +17,8 @@ compiles one whole program per shape, and its Lanczos recompiles its
   3-axis Kronecker sum); the three lowest by deflation to 1e-11, pairwise
   inner products (the zipper) below 1e-10; Lanczos locals to 1e-6 fused
   and host, and 1e-8 with a budget above every local dimension
-  (breakdown); the generalized FEM pair to 1e-9, M-normalized and
+  (breakdown); six-step Lanczos locals descend monotonically (1e-12)
+  from the start's Rayleigh quotient; the generalized FEM pair to 1e-9, M-normalized and
   M-orthogonal; f32 with the dtype-scaled whitener cut to 1e-5 of the
   exact 0.302336;
 - deflation through the fused loop equals the host loop (1e-10); mixed
@@ -198,6 +199,30 @@ def test_lanczos_locals_match_dense(fused):
     assert abs(float(tpk.norm_exact(x)) - 1.0) < 1e-8
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_short_lanczos_descends_from_the_start(fused):
+    """Six Lanczos steps a local (K=8, rank 8, ``dense_limit=0``): each
+    local starts from the train the sweep holds, its orthogonalization
+    factor carried into it, so the Rayleigh history is monotone (1e-12)
+    and ends below the start's Rayleigh quotient, and the returned
+    vector's own quotient is the reported ``lam`` (1e-10).  Warm-started
+    from the core before the factor moved, as the JAX package's host
+    loop is, the history rises and falls between half-sweeps and ends
+    above the start's quotient."""
+    K = 8
+    op = _cpu(tqtt.qtt_screened_laplacian, K, delta=1.0)
+    x0 = tpk.pad_rank(_cpu(tqtt.qtt_exponential, K, c=3.0), 8)
+
+    def rayleigh(x):
+        return float(tpk.inner(x, tpk.ttop_apply_packed(op, x)) / tpk.inner(x, x))
+
+    x, lam, hist = teig.als_eigsh(op, x0, sweeps=4, tol=-1.0, dense_limit=0,
+                                  lanczos_iters=6, fused=fused)
+    assert _monotone(hist, 1e-12)
+    assert lam < rayleigh(x0) - 1e-2
+    assert abs(rayleigh(x) - lam) < 1e-10
+
+
 def test_lanczos_breakdown_is_masked():
     """48 Lanczos steps on locals of at most 4 * 2 * 4 = 32 unknowns: the
     steps past breakdown must not reach the minimum Ritz pair."""
@@ -289,9 +314,9 @@ def test_f32_metric_with_subnormal_entries():
     """On this Gram torch's CPU LAPACK float32 ``eigh`` returned two NaN
     eigenvalues with no error; the local solve's vector came out NaN and
     the next solve failed on it.
-    The whitener factorizes it in float64: W is finite, keeps the four
-    unit directions (cut 100 eps_f32) and whitens them (W^T G W = I to
-    1e-5)."""
+    The whitener flushes its sub-roundoff entries: W is finite, keeps
+    the four unit directions (cut 100 eps_f32) and whitens them (W^T G W
+    = I to 1e-5)."""
     import base64
 
     g = np.frombuffer(base64.b64decode("".join(SUBNORMAL_GRAM)), dtype="<f4").reshape(16, 16)
