@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-eight phases:
+nine phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -97,11 +97,25 @@ eight phases:
    checks), its residual reported and recomputed on the CPU in f64 or its
    eigenvalue error; H1 and H2 at the legs' shapes against their plain
    versions; ``torch.linalg.lstsq`` refused for the whole phase (the
-   dense local solve must not reach its full-rank ``gels``).
+   dense local solve must not reach its full-rank ``gels``);
+9. time integration on the card, TF32 off: the local exponential
+   (128 x 128) against ``torch.linalg.matrix_exp``, with each one's
+   host syncs a call; (a) ``bench.py``'s ``_leg_solver_cpu``
+   ``evolve_tdvp2`` (K=12, f64, 10 steps to T=0.2, max_rank 12, eps
+   1e-8) against the spectral solution, by dense contraction and at the
+   4096 grid points through H2; (b) and (c) ``tools/tdvp_fused_probe.py``'s
+   one-site step (K=22) and two-site step (K=16), rank 8, f32: ms a step
+   fused and on the host loop, host syncs a step by kind (a fused step
+   makes none but cuSOLVER's status checks), busy share and kernels,
+   the two forms' norms; (d) ``evolve_theta`` (Crank-Nicolson, K=12,
+   f64, 10 steps) observing the energy through H1, against the discrete
+   solution in the eigenbasis; (e) ``tdvp_trajectory``'s autograd on the
+   card against central differences; H1 and H2 at (a)'s and (d)'s shapes
+   against their plain versions.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
-phase 6's, one with phase 7's, one with phase 8's, one with per-kernel
-results,
+phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
+one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -2521,6 +2535,350 @@ def phase_solvers(zp, ev):
     return out, kernels_at, launches
 
 
+# -- phase 9: time integration on the card -----------------------------------------
+
+#: 9b and 9c: tools/tdvp_fused_probe.py's configuration (the two-site step
+#: at K=16, as the probe runs it); the fused step is timed over
+#: PROBE_REPS chained steps
+PROBE_DT, PROBE_RANK, PROBE_REPS = 1e-4, 8, 10
+#: phase 9's bars, each just above the larger of the two packages' CPU
+#: readings (``solver_witness.py port evolve`` and ``jax evolve``): 9a's
+#: relative error against the spectral solution (port 1.5111e-8, JAX
+#: 1.5189e-8, both at max rank 3); 9b's and 9c's largest relative
+#: difference of the fused and the host-loop norms over 3 f32 steps (0
+#: in both packages: the same calls on the same operands; the bar is one
+#: float32 rounding); 9d's final state against the discrete
+#: Crank-Nicolson solution (2.0851e-9 in both) and its energies (port
+#: 1.6152e-12, JAX 1.4980e-12); 9e's gradients against central
+#: differences of step 1e-6 (port 4.4e-10, JAX 4.5e-9: the differences'
+#: own roundoff, ~1e-9)
+EVOLVE_BARS = {"9a": 1.6e-8, "9b": 1.2e-7, "9c": 1.2e-7, "9d_state": 2.2e-9,
+               "9d_energy": 2e-12, "9e": 1e-8}
+
+
+def _rel2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _check_traj_syncs(name, row, allowed):
+    """A fused trajectory reads the card once for its record and once for
+    the squaring count's operator-norm bound; every other sync is a cuSOLVER status
+    check (``allowed``)."""
+    syncs = row["syncs"]
+    bad = {k: v for k, v in syncs.items() if k not in allowed + ("record fetch", "host float")}
+    if bad or syncs.get("record fetch") != 1 or syncs.get("host float") != 1:
+        raise AssertionError(f"phase 9 {name}: syncs {syncs}")
+    row["syncs_per_step"] = {k: v / row["steps"] for k, v in syncs.items()}
+
+
+def _grid_vector(u):
+    """A packed QTT train's values on the grid, by dense contraction on the
+    CPU in f64 (``solver_witness.grid_vector``)."""
+    from solver_witness import grid_vector
+
+    return grid_vector(*(t.detach().double().cpu().numpy() for t in u))
+
+
+def _exponential_rows(dev):
+    """The local exponential at 128 x 128 (9b's site locals), f32 and f64,
+    at scaled 1-norms 1e-3 (9b's) and 30: host syncs of one call of
+    ``torch.linalg.matrix_exp`` and of the port's ``_expm``, ms of each
+    (CUDA events), and ``_expm`` against ``matrix_exp`` in f64."""
+    from tensor_networks_tpu_torch.ops import evolve as evm
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    rows = {}
+    for dtype, bar in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        for norm in (1e-3, 30.0):
+            a = _rand(g, 128, 128, dtype=torch.float64)
+            a = a + a.T
+            a = (a * (norm / a.abs().sum(0).amax())).to(dtype)
+            sq = max(0, math.ceil(math.log2(norm))) + 1
+            ref = torch.linalg.matrix_exp(a.double())
+            evm._expm(a, sq)  # the Taylor coefficients reach the card once
+            mexp_syncs, _ = host_syncs(lambda: torch.linalg.matrix_exp(a))
+            own_syncs, got = host_syncs(lambda: evm._expm(a, sq))
+            err = ((got.double() - ref).norm() / ref.norm()).item()
+            key = f"{str(dtype)[6:]}_norm{norm:g}"
+            rows[key] = {"matrix_exp_syncs": sum(mexp_syncs.values()),
+                         "expm_syncs": sum(own_syncs.values()), "rel_err": err,
+                         "matrix_exp_ms": _time_ms(lambda: torch.linalg.matrix_exp(a)),
+                         "expm_ms": _time_ms(lambda: evm._expm(a, sq)), "squarings": sq}
+            if own_syncs or not err <= bar:
+                raise AssertionError(f"phase 9 exponential {key}: syncs {own_syncs}, "
+                                     f"error {err:.3e} against matrix_exp (bar {bar:g})")
+    return rows
+
+
+def _tdvp2_bench_leg(tnt, zp, ev):
+    """9a: bench.py:1354-1385 (_leg_solver_cpu's evolve_tdvp2) on the card:
+    qtt_tridiagonal(12, 2, -1, -1) from qtt_exponential(12, c=3), f64, 10
+    steps to T=0.2, max_rank 12, eps 1e-8; the relative error against the
+    spectral solution V exp(-lams T) V w0 by dense contraction on the CPU
+    and at all 4096 grid points through H2."""
+    from tensor_networks_tpu_torch import packed
+
+    K, T, steps = 12, 0.2, 10
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0)
+    u0 = tnt.qtt_exponential(K, c=3.0)
+
+    def call():
+        return tnt.evolve_tdvp2(A, u0, T / steps, steps, max_rank=12, eps=1e-8)
+
+    call()  # the first call at these shapes, untimed
+    (u, norms, ranks), row = _solver_run(call, zp, ev)
+    row.update(steps=steps, ms_per_step=row["event_ms"] / steps, max_rank=max(ranks))
+    _check_traj_syncs("9a", row, CUSOLVER_INFO)
+    from solver_witness import heat_spectrum
+
+    V, lams, w0 = heat_spectrum(K)
+    ref = V @ (np.exp(-lams * T) * (V @ w0))
+    row["err"] = _rel2(_grid_vector(u), ref)
+    pts = np.arange(2**K)
+    bits = torch.from_numpy((pts[:, None] >> np.arange(K)[None, :]) & 1).to(u.first.device)
+    _reset_counts(zp, ev)
+    got = packed.evaluate(u, bits).double().cpu().numpy()
+    row["launches_grid"] = _counts(zp, ev)
+    row["err_grid"] = _rel2(got, ref)
+    if row["launches_grid"]["evaluate"] != 1 or not np.all(np.isfinite(got)):
+        raise AssertionError(f"phase 9 9a grid check: launches {row['launches_grid']}")
+    bar = EVOLVE_BARS["9a"]
+    if not (row["err"] <= bar and row["err_grid"] <= bar and row["max_rank"] <= 12):
+        raise AssertionError(f"phase 9 9a: error {row['err']:.3e} (grid {row['err_grid']:.3e}), "
+                             f"max rank {row['max_rank']}, bar {bar:g}")
+    return row, _h1_h2_at(zp, ev, u, u, bits)
+
+
+def _probe_step_leg(tnt, zp, ev, two_site):
+    """9b (one-site, K=22) and 9c (two-site, K=16): tools/tdvp_fused_probe.py's
+    f32 step of pad_rank(qtt_exponential(K, 3), 8), dt 1e-4, dense_limit
+    1024, krylov 24 (eps 1e-6 two-site).  The fused step's ms (CUDA events
+    over PROBE_REPS chained steps, after three untimed, in turns before
+    and after the host loop's), its host syncs (none but cuSOLVER's status
+    checks), busy share and kernels (a profiled repeat); the host loop's
+    ms and syncs a step (the slope between 1 and 3 steps) and one
+    profiled step; the norms of 3 steps in each form."""
+    from tensor_networks_tpu_torch import packed
+    from tensor_networks_tpu_torch.ops import evolve as evm
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    f32 = torch.float32
+    K = 16 if two_site else 22
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0, dtype=f32)
+    u0 = packed.pad_rank(tnt.qtt_exponential(K, c=3.0, dtype=f32), PROBE_RANK)
+    x0, X, xl, a0, Am, al = evm._fused_operands(A, u0)
+    h = torch.full((), PROBE_DT, dtype=f32, device=x0.device)
+    r, n = PROBE_RANK, 2
+    if two_site:
+        ej = torch.full((), 1e-6, dtype=f32, device=x0.device)
+        sq = evm._squarings(A, 0.5 * PROBE_DT, r * n * n * r, 1024, 24)
+
+        def step(c):
+            return evm._tdvp2_step_impl(c[0], c[1], c[2], a0, Am, al, h, ej, 1024, 24, r, sq)
+
+        def host(steps):
+            return tnt.evolve_tdvp2(A, u0, PROBE_DT, steps, eps=1e-6, dense_limit=1024,
+                                    fused=False)[1:]
+
+        def fused(steps):
+            return tnt.evolve_tdvp2(A, u0, PROBE_DT, steps, eps=1e-6, dense_limit=1024)[1:]
+    else:
+        sq = evm._squarings(A, 0.5 * PROBE_DT, r * n * r, 1024, 24)
+
+        def step(c):
+            return evm._tdvp_step_impl(c[0], c[1], c[2], a0, Am, al, h, 1024, 24, sq)
+
+        def host(steps):
+            return tnt.evolve_tdvp(A, u0, PROBE_DT, steps, fused=False)[1:] + (None,)
+
+        def fused(steps):
+            return tnt.evolve_tdvp(A, u0, PROBE_DT, steps)[1:] + (None,)
+
+    c = (x0, X, xl)
+    for _ in range(3):  # the first calls at these shapes, untimed
+        c = step(c)
+    host(1)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def fused_ms(c):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(PROBE_REPS):
+            c = step(c)
+        stop.record()
+        torch.cuda.synchronize()
+        return c, start.elapsed_time(stop) / PROBE_REPS
+
+    c, first_ms = fused_ms(c)
+    row = {"steps": PROBE_REPS, "squarings": sq}
+    row["syncs"], _ = host_syncs(lambda: step(c))
+    _, row["busy_ms"], row["kernels"], row["top"] = _device_profile(lambda: step(c))
+    if two_site:
+        row["max_keff"] = int(step(c)[3].max())
+    bad = {k: v for k, v in row["syncs"].items() if k not in CUSOLVER_INFO}
+    if bad:
+        raise AssertionError(f"phase 9 {'9c' if two_site else '9b'}: a fused step synced {bad}")
+    times, syncs = {}, {}
+    for steps in (1, 3):
+        start.record()
+        host(steps)
+        stop.record()
+        torch.cuda.synchronize()
+        times[steps] = start.elapsed_time(stop)
+        syncs[steps], _ = host_syncs(lambda: host(steps))
+    row["host_ms_per_step"] = (times[3] - times[1]) / 2
+    # the fused step timed again after the host loop: turns F H F
+    c, last_ms = fused_ms(c)
+    row["fused_ms_runs"] = [first_ms, last_ms]
+    row["ms_per_step"] = (first_ms + last_ms) / 2
+    row["host_syncs_per_step"] = {k: (v - syncs[1].get(k, 0)) / 2 for k, v in syncs[3].items()}
+    _, row["host_busy_ms"], row["host_kernels"], _ = _device_profile(lambda: host(1))
+    row["busy_share"] = row["busy_ms"] / row["ms_per_step"]
+    (nf, rf), (nh, rh) = fused(3), host(3)
+    row["norms"], row["ranks"] = nf, rf
+    row["norm_diff"] = max(abs(a - b) / abs(b) for a, b in zip(nf, nh))
+    bar = EVOLVE_BARS["9c" if two_site else "9b"]
+    if not (row["norm_diff"] <= bar and all(math.isfinite(v) for v in nf) and rf == rh):
+        raise AssertionError(f"phase 9 {'9c' if two_site else '9b'}: fused norms {nf}, host "
+                             f"{nh}, ranks {rf} / {rh}, bar {bar:g}")
+    return row
+
+
+def _theta_leg(tnt, zp, ev):
+    """9d: evolve_theta (Crank-Nicolson) at K=12 from
+    pad_rank(qtt_exponential(12, 3), 8), f64, dt 0.02, 10 steps, spd,
+    observing A: the energies go through H1 (one launch a step); the final
+    state and the energies against the discrete solution in the
+    eigenbasis, V diag(g^n) V w0 with g = (1 - dt lams / 2) / (1 + dt lams / 2)."""
+    from tensor_networks_tpu_torch import packed
+
+    K, dt, steps = 12, 0.02, 10
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0)
+    u0 = packed.pad_rank(tnt.qtt_exponential(K, c=3.0), 8)
+
+    def call():
+        return tnt.evolve_theta(A, u0, dt, steps, theta=0.5, spd=True, observables=(A,))
+
+    call()
+    (u, res, obs), row = _solver_run(call, zp, ev)
+    row.update(steps=steps, ms_per_step=row["event_ms"] / steps, resid=max(res))
+    row["syncs_per_step"] = {k: v / steps for k, v in row["syncs"].items()}
+    from solver_witness import cn_reference
+
+    x_ref, e_ref = cn_reference(K, dt, steps)
+    row["err"] = _rel2(_grid_vector(u), x_ref)
+    row["energy_err"] = max(abs(o[0] - e) / e for o, e in zip(obs, e_ref))
+    if row["launches"]["zipper"] != steps:
+        raise AssertionError(f"phase 9 9d: H1 launches {row['launches']} for {steps} energies")
+    if not (row["err"] <= EVOLVE_BARS["9d_state"]
+            and row["energy_err"] <= EVOLVE_BARS["9d_energy"]):
+        raise AssertionError(f"phase 9 9d: state error {row['err']:.3e}, energies "
+                             f"{row['energy_err']:.3e}")
+    pts = np.random.default_rng(SEED + 60).integers(0, 2**K, B)
+    bits = torch.from_numpy((pts[:, None] >> np.arange(K)[None, :]) & 1).to(u.first.device)
+    return row, _h1_h2_at(zp, ev, u, packed.ttop_apply_packed(A, u), bits)
+
+
+def _gradient_leg(tnt, zp, ev):
+    """9e: tdvp_trajectory's autograd on the card (tests/test_evolve.py:272's
+    shape: K=6, rank 2, f64, 3 steps): the final energy's gradients w.r.t.
+    an operator coefficient and dt against central differences (step
+    1e-6), with QR and the exponential differentiated on CUDA."""
+    from tensor_networks_tpu_torch import packed
+
+    K, r = 6, 2
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0)
+    rng = np.random.default_rng(0)
+    u0 = packed.from_numpy(rng.standard_normal((2, r)),
+                           rng.standard_normal((K - 2, r, 2, r)) / np.sqrt(r),
+                           rng.standard_normal((r, 2)))
+
+    def loss(c, dt):
+        Ac = packed.PackedTTOp(A.first * c, A.mids, A.last)
+        return tnt.tdvp_trajectory(Ac, u0, dt, 3, observables=(A,))[2][-1, 0]
+
+    _reset_counts(zp, ev)
+    t0 = time.perf_counter()
+    c, dt = (torch.tensor(v, dtype=torch.float64, device=A.first.device, requires_grad=True)
+             for v in (1.0, 0.05))
+    grads = [g.item() for g in torch.autograd.grad(loss(c, dt), (c, dt))]
+    row = {"wall_s": time.perf_counter() - t0, "launches": _counts(zp, ev), "grads": grads}
+    with torch.no_grad():
+        fds = [(loss(1.0 + 1e-6, 0.05) - loss(1.0 - 1e-6, 0.05)).item() / 2e-6,
+               (loss(1.0, 0.05 + 1e-6) - loss(1.0, 0.05 - 1e-6)).item() / 2e-6]
+    row["rel_err"] = [abs(g - f) / abs(f) for g, f in zip(grads, fds)]
+    if not max(row["rel_err"]) <= EVOLVE_BARS["9e"]:
+        raise AssertionError(f"phase 9 9e: gradients {grads}, differences {fds}")
+    return row
+
+
+def _print_evolve_row(name, row):
+    extra = {k: row[k] for k in ("err", "err_grid", "max_rank", "energy_err", "resid",
+                                 "launches", "launches_grid") if k in row}
+    print(f"  {name}: wall {row['wall_s']:.3f} s, {row['steps']} steps, "
+          f"{row['ms_per_step']:.2f} ms a step (CUDA events, {row['event_ms']:.1f} ms a call); "
+          f"device busy {row['busy_ms']:.1f} ms ({100 * row['busy_share']:.0f}% of the wall) "
+          f"over {row['kernels']} kernels; host syncs {row['syncs']} "
+          f"({row['syncs_per_step']} a step); top kernels "
+          f"{[(n, round(ms, 2), c) for n, ms, c in row['top']]}; {extra}")
+
+
+def phase_evolve(zp, ev, dev):
+    """Time integration on the card (9a-9e), TF32 off, each leg to its bars."""
+    import tensor_networks_tpu_torch as tnt
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 9 runs with TF32 off")
+    print("phase 9 time integration on the card:")
+    t0 = time.perf_counter()
+    out, kernels_at = {}, {}
+    out["expm"] = _exponential_rows(dev)
+    for k, r in out["expm"].items():
+        print(f"  local exponential 128x128 {k}: matrix_exp {r['matrix_exp_ms']:.4f} ms, "
+              f"{r['matrix_exp_syncs']} host syncs a call; _expm ({r['squarings']} squarings) "
+              f"{r['expm_ms']:.4f} ms, {r['expm_syncs']} syncs, {r['rel_err']:.2e} from "
+              f"matrix_exp in f64")
+    out["9a"], kernels_at["9a"] = _tdvp2_bench_leg(tnt, zp, ev)
+    _print_evolve_row("9a evolve_tdvp2 K=12 max_rank 12 f64", out["9a"])
+    for key, two_site in (("9b", False), ("9c", True)):
+        out[key] = r = _probe_step_leg(tnt, zp, ev, two_site)
+        print(f"  {key} {'two' if two_site else 'one'}-site step K={16 if two_site else 22} "
+              f"rank 8 f32: fused {r['ms_per_step']:.2f} ms a step (CUDA events, turns "
+              f"{[round(v, 2) for v in r['fused_ms_runs']]} around the host loop), host syncs "
+              f"{r['syncs']}, busy {r['busy_ms']:.2f} ms ({100 * r['busy_share']:.0f}%) over "
+              f"{r['kernels']} kernels, {r['squarings']} squarings; host loop "
+              f"{r['host_ms_per_step']:.2f} ms a step, syncs a step {r['host_syncs_per_step']}, "
+              f"one profiled step {r['host_busy_ms']:.2f} ms busy over {r['host_kernels']} "
+              f"kernels; norms {r['norms']} (fused against host {r['norm_diff']:.2e})"
+              + (f", ranks {r['ranks']}, max keff {r['max_keff']}" if two_site else "")
+              + f"; top kernels {[(n, round(ms, 3), c) for n, ms, c in r['top']]}")
+    out["9d"], kernels_at["9d"] = _theta_leg(tnt, zp, ev)
+    _print_evolve_row("9d evolve_theta CN K=12 rank 8 f64", out["9d"])
+    out["9e"] = _gradient_leg(tnt, zp, ev)
+    print(f"  9e tdvp_trajectory gradients {out['9e']['grads']}, relative errors against "
+          f"central differences {out['9e']['rel_err']}, wall {out['9e']['wall_s']:.3f} s")
+    for k, r in kernels_at.items():
+        h1, h2 = r["h1"], r["h2"]
+        print(f"  {k}: H1 kernel {h1['ms']:.4f} ms, plain {h1['plain_ms']:.4f}, bound "
+              f"{h1['bound_ms']:.6f} by {h1['bound_by']}, err {h1['rel_err']:.1e}; H2 kernel "
+              f"{h2['ms']:.4f} ms, plain {h2['plain_ms']:.4f}, bound {h2['bound_ms']:.6f} by "
+              f"{h2['bound_by']}, err {h2['rel_err']:.1e}")
+    wall = time.perf_counter() - t0
+    print(f"  phase 9 wall {wall:.1f} s")
+    keep = ("wall_s", "steps", "ms_per_step", "busy_share", "kernels", "syncs", "err",
+            "err_grid", "max_rank", "max_keff", "norm_diff", "host_ms_per_step",
+            "host_syncs_per_step", "energy_err", "resid", "rel_err", "squarings")
+    line = {leg: {k: _sig(v) for k, v in r.items() if k in keep}
+            for leg, r in out.items() if leg != "expm"}
+    line["expm"] = _sig(out["expm"])
+    line["wall_s"] = _sig(wall)
+    print(json.dumps({"evolve": line}, separators=(",", ":")))
+    launches = {"9a": out["9a"]["launches"], "9a_check": out["9a"]["launches_grid"],
+                "9d": out["9d"]["launches"], "9e": out["9e"]["launches"]}
+    return out, kernels_at, launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -2543,7 +2901,8 @@ def _kernel_numbers(t):
     for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
                         ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms")),
                         ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("solvers", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
+                        ("solvers", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                        ("evolve", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
         if group in t:
             out[group] = {k: {f: v[f] for f in keep} for k, v in t[group].items()}
     return out
@@ -2606,6 +2965,9 @@ def main() -> int:
     _, solver_kernels, solver_launches = phase_solvers(zp, ev)
     for name, key in (("inner", "h1"), ("evaluate", "h2")):
         times[name]["solvers"] = {k: r[key] for k, r in solver_kernels.items()}
+    _, evolve_kernels, evolve_launches = phase_evolve(zp, ev, dev)
+    for name, key in (("inner", "h1"), ("evaluate", "h2")):
+        times[name]["evolve"] = {k: r[key] for k, r in evolve_kernels.items()}
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
@@ -2615,7 +2977,8 @@ def main() -> int:
          "launches": launches["zipper"], **_kernel_numbers(times["inner"]),
          "launches_rounding": round_launches["zipper"],
          "launches_gmres": {k: v["zipper"] for k, v in gmres_launches.items()},
-         "launches_solvers": {k: v["zipper"] for k, v in solver_launches.items()}},
+         "launches_solvers": {k: v["zipper"] for k, v in solver_launches.items()},
+         "launches_evolve": {k: v["zipper"] for k, v in evolve_launches.items()}},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
@@ -2623,7 +2986,8 @@ def main() -> int:
          "launches": launches["chain"], **_kernel_numbers(times["chain"]),
          "launches_rounding": round_launches["chain"],
          "launches_gmres": {k: v["chain"] for k, v in gmres_launches.items()},
-         "launches_solvers": {k: v["chain"] for k, v in solver_launches.items()}},
+         "launches_solvers": {k: v["chain"] for k, v in solver_launches.items()},
+         "launches_evolve": {k: v["chain"] for k, v in evolve_launches.items()}},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
@@ -2632,7 +2996,8 @@ def main() -> int:
          "launches_cross": cross_launches["by_dtype"],
          "launches_rounding": round_launches["evaluate"],
          "launches_gmres": {k: v["evaluate"] for k, v in gmres_launches.items()},
-         "launches_solvers": {k: v["evaluate"] for k, v in solver_launches.items()}},
+         "launches_solvers": {k: v["evaluate"] for k, v in solver_launches.items()},
+         "launches_evolve": {k: v["evaluate"] for k, v in evolve_launches.items()}},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
@@ -2640,8 +3005,13 @@ def main() -> int:
          "launches_cross": cross_launches["tiles"],
          "launches_rounding": round_launches["tiles"],
          "launches_gmres": {k: v["tiles"] for k, v in gmres_launches.items()},
-         "launches_solvers": {k: v["tiles"] for k, v in solver_launches.items()}},
+         "launches_solvers": {k: v["tiles"] for k, v in solver_launches.items()},
+         "launches_evolve": {k: v["tiles"] for k, v in evolve_launches.items()}},
     ]
+    for k in kernels:  # zero launch counts are left out: the line stays under 5 KB
+        for f, v in k.items():
+            if f.startswith("launches_") and isinstance(v, dict):
+                k[f] = {leg: n for leg, n in v.items() if n}
     print(json.dumps({"kernels": [_sig(k) for k in kernels]}, separators=(",", ":")))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""The CPU readings behind the bars of ``chip_smoke.py``'s phase 8.
+"""The CPU readings behind the bars of ``chip_smoke.py``'s phases 8 and 9.
 
-    python3 solver_witness.py port   # the PyTorch port, on the CPU
-    python3 solver_witness.py jax    # the JAX package's host loop, on the CPU
+    python3 solver_witness.py port [solvers|evolve]   # the PyTorch port, on the CPU
+    python3 solver_witness.py jax [solvers|evolve]    # the JAX package, on the CPU
 
-Each mode imports only its own package.  It prints, one line each:
+Each mode imports only its own package and prints phase 8's readings
+(``solvers``), phase 9's (``evolve``) or both, one line each.  Phase 8:
 
 - 8c (K=14, rank 64, f32, x0 = pad_rank(qtt_exponential(14, c=3), 64),
   48 Lanczos steps a local, every sweep run): the start's Rayleigh
@@ -16,6 +17,27 @@ Each mode imports only its own package.  It prints, one line each:
 - 8e: ``als_solve_adaptive`` at 3 and 5 bits per axis, rank 2 to 16,
   eps 1e-10, 2 sweeps a rank, enrichment on and off, in f64: the
   relative residual, the sweeps and the rank.
+
+Phase 9 (the JAX package on its host loop where a leg compares the
+two forms, as ``bench.py`` calls it for 9a):
+
+- 9a (``bench.py``'s ``_leg_solver_cpu``): ``evolve_tdvp2`` on
+  ``qtt_tridiagonal(12, 2, -1, -1)`` from ``qtt_exponential(12, c=3)``,
+  f64, 10 steps to T=0.2, ``max_rank=12``, ``eps=1e-8``: the relative
+  error against the spectral solution ``V exp(-Lambda T) V w0`` and the
+  largest effective rank;
+- 9b (``tools/tdvp_fused_probe.py``'s one-site step): K=22,
+  ``pad_rank(qtt_exponential(22, 3), 8)``, f32, dt 1e-4, 3 steps fused
+  and on the host loop: the largest relative difference of the norms;
+- 9c (its two-site step at K=16, rank 8, eps 1e-6): the same, and the
+  effective ranks of both forms;
+- 9d: ``evolve_theta`` (theta 0.5) at K=12 from
+  ``pad_rank(qtt_exponential(12, 3), 8)``, f64, dt 0.02, 10 steps, spd,
+  observing ``A``: the final state's and the energies' relative errors
+  against the discrete Crank-Nicolson solution in the eigenbasis;
+- 9e (``tests/test_evolve.py:272``'s shape, K=6, r=2, f64):
+  ``tdvp_trajectory``'s gradients of the final energy against central
+  differences.
 
 The port takes minutes, the JAX package's host loop about a quarter of
 an hour (its 8c locals are compiled calls of one core each).
@@ -119,7 +141,202 @@ def _adaptive(laplacian_nd, exponential_nd, solve, pk, where, **kw):
                   f"{res / norm:.6e}, {len(hist)} sweeps, rank {x.rank}")
 
 
+# -- phase 9 ---------------------------------------------------------------------
+
+
+def heat_spectrum(K):
+    """The tridiag(-1, 2, -1) matrix of 2^K points in its eigenbasis:
+    ``(V, lams, w0)``, ``V`` the symmetric orthogonal sine transform and
+    ``w0 = exp(-3 i / 2^K)`` (``bench.py``'s own formula)."""
+    import numpy as np
+
+    n = 2**K
+    ii = np.arange(1, n + 1)
+    V = np.sqrt(2.0 / (n + 1)) * np.sin(np.outer(ii, ii) * np.pi / (n + 1))
+    return V, 2 - 2 * np.cos(ii * np.pi / (n + 1)), np.exp(-3.0 * np.arange(n) / n)
+
+
+def grid_vector(first, mids, last):
+    """A packed QTT train's values on the grid (core 0 the least
+    significant bit), from NumPy cores."""
+    import numpy as np
+
+    v = first
+    for m in mids:
+        v = np.einsum("ar,rnb->anb", v, m).reshape(-1, m.shape[-1])
+    v = (v @ last).reshape((2,) * (len(mids) + 2))
+    return v.transpose(*reversed(range(v.ndim))).reshape(-1)
+
+
+def cn_reference(K, dt, steps):
+    """The discrete Crank-Nicolson trajectory of w0 in the eigenbasis:
+    the final state and the energies <w_n, A w_n>, n = 1..steps."""
+    V, lams, w0 = heat_spectrum(K)
+    g = (1 - 0.5 * dt * lams) / (1 + 0.5 * dt * lams)
+    c = V @ w0
+    return V @ (g**steps * c), [float((lams * (g**n * c) ** 2).sum()) for n in range(1, steps + 1)]
+
+
+def _evolve_readings(run, arrays):
+    """Phase 9's readings; ``run(leg, **kw)`` calls one package's
+    integrator, ``arrays`` turns its train into NumPy cores."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    V, lams, w0 = heat_spectrum(12)
+    t0 = time.perf_counter()
+    u, ranks = run("9a")
+    ref = V @ (np.exp(-lams * 0.2) * (V @ w0))
+    print(f"9a evolve_tdvp2 K=12 f64: relative error {rel(grid_vector(*arrays(u)), ref):.4e}, "
+          f"max effective rank {max(ranks)} ({time.perf_counter() - t0:.1f} s)")
+    for leg in ("9b", "9c"):
+        t0 = time.perf_counter()
+        (nf, rf), (nh, rh) = run(leg, fused=True), run(leg, fused=False)
+        diff = max(abs(a - b) / abs(b) for a, b in zip(nf, nh))
+        print(f"{leg} fused against host loop, f32, 3 steps: norms {nf}, largest relative "
+              f"difference {diff:.4e}" + (f", ranks {rf} / {rh}" if rf else "")
+              + f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    u, energies = run("9d")
+    x_ref, e_ref = cn_reference(12, 0.02, 10)
+    print(f"9d evolve_theta CN K=12 f64: final state relative error "
+          f"{rel(grid_vector(*arrays(u)), x_ref):.4e}, energies largest relative error "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(energies, e_ref)):.4e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    grads, fds = run("9e")
+    print("9e tdvp_trajectory gradient against central differences: relative errors "
+          + ", ".join(f"{abs(g - f) / abs(f):.4e}" for g, f in zip(grads, fds)))
+
+
+def _evolve_port():
+    import numpy as np
+    import torch
+
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import packed as pk
+
+    cpu, f32 = "cpu", torch.float32
+
+    def heat(K, dtype=torch.float64):
+        return tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0, dtype=dtype, device=cpu)
+
+    def start(K, dtype=torch.float64, rank=8):
+        return pk.pad_rank(tnt.qtt_exponential(K, c=3.0, dtype=dtype, device=cpu), rank)
+
+    def run(leg, fused=None):
+        if leg == "9a":
+            u, _, ranks = tnt.evolve_tdvp2(heat(12), start(12, rank=1), 0.02, 10, max_rank=12,
+                                           eps=1e-8)
+            return u, ranks
+        if leg == "9b":
+            _, norms = tnt.evolve_tdvp(heat(22, f32), start(22, f32), 1e-4, 3, fused=fused)
+            return norms, None
+        if leg == "9c":
+            _, norms, ranks = tnt.evolve_tdvp2(heat(16, f32), start(16, f32), 1e-4, 3,
+                                               max_rank=8, eps=1e-6, dense_limit=1024,
+                                               fused=fused)
+            return norms, ranks
+        if leg == "9d":
+            A = heat(12)
+            u, _, obs = tnt.evolve_theta(A, start(12), 0.02, 10, theta=0.5, spd=True,
+                                         observables=(A,))
+            return u, [o[0] for o in obs]
+        return _gradients_port(tnt, pk, torch, np)
+
+    _evolve_readings(run, lambda u: [t.numpy() for t in u])
+
+
+def _gradients_port(tnt, pk, torch, np):
+    """9e: autograd of the final energy w.r.t. an operator coefficient
+    and dt, and central differences (step 1e-6)."""
+    K, r = 6, 2
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0, device="cpu")
+    rng = np.random.default_rng(0)
+    u0 = pk.from_numpy(rng.standard_normal((2, r)), rng.standard_normal((K - 2, r, 2, r)) / np.sqrt(r),
+                       rng.standard_normal((r, 2)), device="cpu")
+
+    def loss(c, dt):
+        Ac = pk.PackedTTOp(A.first * c, A.mids, A.last)
+        return tnt.tdvp_trajectory(Ac, u0, dt, 3, observables=(A,))[2][-1, 0]
+
+    c, dt = (torch.tensor(v, dtype=torch.float64, requires_grad=True) for v in (1.0, 0.05))
+    grads = [float(g) for g in torch.autograd.grad(loss(c, dt), (c, dt))]
+    with torch.no_grad():
+        fds = [float(loss(1.0 + 1e-6, 0.05) - loss(1.0 - 1e-6, 0.05)) / 2e-6,
+               float(loss(1.0, 0.05 + 1e-6) - loss(1.0, 0.05 - 1e-6)) / 2e-6]
+    return grads, fds
+
+
+def _evolve_jax():
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tensor_networks_tpu.ops import packed as pk
+    from tensor_networks_tpu.ops.evolve import (
+        evolve_tdvp,
+        evolve_tdvp2,
+        evolve_theta,
+        tdvp_trajectory,
+    )
+    from tensor_networks_tpu.ops.qtt import qtt_exponential, qtt_tridiagonal
+
+    def cast(t, dtype):
+        return type(t)(*(x.astype(dtype) for x in t))
+
+    def start(K, dtype=jnp.float64, rank=8):
+        return cast(pk.pad_rank(qtt_exponential(K, c=3.0), rank), dtype)
+
+    def run(leg, fused=None):
+        if leg == "9a":
+            u, _, ranks = evolve_tdvp2(qtt_tridiagonal(12, 2.0, -1.0, -1.0), start(12, rank=1),
+                                       0.02, 10, max_rank=12, eps=1e-8)
+            return u, ranks
+        f32 = jnp.float32
+        if leg == "9b":
+            _, norms = evolve_tdvp(cast(qtt_tridiagonal(22, 2.0, -1.0, -1.0), f32),
+                                   start(22, f32), 1e-4, 3, fused=fused)
+            return norms, None
+        if leg == "9c":
+            _, norms, ranks = evolve_tdvp2(cast(qtt_tridiagonal(16, 2.0, -1.0, -1.0), f32),
+                                           start(16, f32), 1e-4, 3, max_rank=8, eps=1e-6,
+                                           dense_limit=1024, fused=fused)
+            return norms, ranks
+        if leg == "9d":
+            A = qtt_tridiagonal(12, 2.0, -1.0, -1.0)
+            u, _, obs = evolve_theta(A, start(12), 0.02, 10, theta=0.5, spd=True,
+                                     observables=(A,), fused=False)
+            return u, [o[0] for o in obs]
+        K, r = 6, 2
+        A = qtt_tridiagonal(K, 2.0, -1.0, -1.0)
+        rng = np.random.default_rng(0)
+        u0 = pk.PackedTT(jnp.asarray(rng.standard_normal((2, r))),
+                         jnp.asarray(rng.standard_normal((K - 2, r, 2, r)) / np.sqrt(r)),
+                         jnp.asarray(rng.standard_normal((r, 2))))
+
+        def loss(c, dt):
+            Ac = pk.PackedTTOp(A.first * c, A.mids, A.last)
+            return tdvp_trajectory(Ac, u0, dt, 3, observables=(A,))[2][-1, 0]
+
+        grads = [float(g) for g in jax.grad(loss, argnums=(0, 1))(1.0, 0.05)]
+        fds = [float(loss(1.0 + 1e-6, 0.05) - loss(1.0 - 1e-6, 0.05)) / 2e-6,
+               float(loss(1.0, 0.05 + 1e-6) - loss(1.0, 0.05 - 1e-6)) / 2e-6]
+        return grads, fds
+
+    _evolve_readings(run, lambda u: [np.asarray(t, dtype=np.float64) for t in u])
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] not in (["port"], ["jax"]):
+    if sys.argv[1:2] not in (["port"], ["jax"]) or sys.argv[2:] not in ([], ["solvers"],
+                                                                           ["evolve"]):
         sys.exit(__doc__)
-    (_port if sys.argv[1] == "port" else _jax)()
+    port = sys.argv[1] == "port"
+    if sys.argv[2:] != ["evolve"]:
+        (_port if port else _jax)()
+    if sys.argv[2:] != ["solvers"]:
+        (_evolve_port if port else _evolve_jax)()

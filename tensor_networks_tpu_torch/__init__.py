@@ -7,7 +7,8 @@ constructors and the four TT rounding families, TT-operators and
 TT-GMRES (graph and packed), uniform-train fast paths (zipper inner
 product, fixed-rank rounding sweep), the packed device TT algebra, the
 QTT constructors, the ALS linear solver and DMRG eigensolver
-(:mod:`tensor_networks_tpu_torch.ops.als`, :mod:`~.ops.eigen`) and cross
+(:mod:`tensor_networks_tpu_torch.ops.als`, :mod:`~.ops.eigen`), the time
+integrators (:mod:`~.ops.evolve`) and cross
 approximation
 (:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
@@ -83,6 +84,10 @@ from tensor_networks_tpu_torch.ops import (
     als_eigsh,
     als_eigsh_adaptive,
     als_eigsh_k,
+    evolve_theta,
+    evolve_tdvp,
+    evolve_tdvp2,
+    tdvp_trajectory,
     tt_inner_fast,
     tt_inner_fn,
     stack_tt_cores,
@@ -157,6 +162,10 @@ __all__ = [
     "als_eigsh",
     "als_eigsh_adaptive",
     "als_eigsh_k",
+    "evolve_theta",
+    "evolve_tdvp",
+    "evolve_tdvp2",
+    "tdvp_trajectory",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

@@ -1,6 +1,7 @@
 """TT algebra, the four rounding families, TT-operators and GMRES,
 fused train operations, the packed device TT algebra, the QTT
-constructors, and the ALS linear solver and DMRG eigensolver."""
+constructors, the ALS linear solver and DMRG eigensolver, and the time
+integrators."""
 
 from tensor_networks_tpu_torch.ops.tt import (
     tt_rank1,
@@ -64,6 +65,12 @@ from tensor_networks_tpu_torch.ops.eigen import (
     als_eigsh_adaptive,
     als_eigsh_k,
 )
+from tensor_networks_tpu_torch.ops.evolve import (
+    evolve_tdvp,
+    evolve_tdvp2,
+    evolve_theta,
+    tdvp_trajectory,
+)
 from tensor_networks_tpu_torch.ops.fast import (
     tt_inner_fast,
     tt_inner_fn,
@@ -122,6 +129,10 @@ __all__ = [
     "als_eigsh",
     "als_eigsh_adaptive",
     "als_eigsh_k",
+    "evolve_theta",
+    "evolve_tdvp",
+    "evolve_tdvp2",
+    "tdvp_trajectory",
     "tt_inner_fast",
     "tt_inner_fn",
     "stack_tt_cores",

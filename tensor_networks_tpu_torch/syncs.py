@@ -17,10 +17,11 @@ import torch
 
 #: (pattern of the source line, kind): the stop test and the record
 #: fetch of a fused loop, cuSOLVER's status checks, ``svd_round``'s rank
-#: read and any other float read
+#: read and any other float or int read
 SYNC_KINDS = (("bool(flag)", "stop test"), (".cpu()", "record fetch"),
               ("torch.linalg.svd", "svd info"), ("torch.linalg.eigh", "eigh info"),
-              ("int(_trunc_count", "svd_round rank read"), ("float(", "host float"))
+              ("int(_trunc_count", "svd_round rank read"), ("float(", "host float"),
+              ("int(", "host int"))
 
 
 def host_syncs(fn):

@@ -630,3 +630,91 @@ def test_fused_sweeps_read_the_card_once_each(dev):
         assert info > 0 and info % locals_ == 0, (name, info)
         if name != "als":
             assert info == 3 * locals_
+
+
+def test_evolve_exponential_on_the_card(dev):
+    """The time integrators' local exponential on the card, f32 and f64,
+    at scaled 1-norms 1e-3 to 30, against ``torch.linalg.matrix_exp`` in
+    f64 (1e-6 / 1e-13), with no host sync (``matrix_exp`` reads its
+    operand's norm on the host to pick its degree)."""
+    from tensor_networks_tpu_torch.ops import evolve
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dtype, bar in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        for norm in (1e-3, 1.0, 30.0):
+            a = torch.randn(128, 128, generator=g, device=dev, dtype=torch.float64)
+            a = a + a.T
+            a = (a * (norm / a.abs().sum(0).amax())).to(dtype)
+            sq = max(0, math.ceil(math.log2(norm))) + 1
+            evolve._expm(a, sq)  # the Taylor coefficients reach the card once
+            syncs, got = host_syncs(lambda: evolve._expm(a, sq))
+            ref = torch.linalg.matrix_exp(a.double())
+            assert not syncs, syncs
+            assert got.dtype == dtype
+            assert ((got.double() - ref).norm() / ref.norm()).item() <= bar, (dtype, norm)
+
+
+def test_fused_tdvp_steps_read_the_card_only_for_cusolver(dev):
+    """A fused one-site step (dense and Lanczos locals) makes no host
+    sync; a fused two-site step only cuSOLVER's SVD status reads, the
+    same number for each of its 2 (d - 1) splits; a whole fused
+    trajectory adds one read of the operator-norm bound (the squaring
+    count) and one of its record."""
+    from tensor_networks_tpu_torch.ops import evolve, qtt
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    d = 6
+    A = qtt.qtt_tridiagonal(d, 2.0, -1.0, -1.0)
+    u0 = tpk.pad_rank(qtt.qtt_exponential(d, c=3.0), 4)
+    x0, X, xl, a0, Am, al = evolve._fused_operands(A, u0)
+    h = torch.full((), 0.01, dtype=torch.float64, device=dev)
+    ej = torch.full((), 1e-8, dtype=torch.float64, device=dev)
+    calls = {
+        "one-site": lambda: evolve._tdvp_step_impl(x0, X, xl, a0, Am, al, h, 1024, 24, 2),
+        "lanczos": lambda: evolve._tdvp_step_impl(x0, X, xl, a0, Am, al, h, 0, 8, 2),
+        "two-site": lambda: evolve._tdvp2_step_impl(x0, X, xl, a0, Am, al, h, ej, 4096, 24,
+                                                    4, 2),
+    }
+    for name, call in calls.items():
+        call()  # warm: cuSOLVER handles, the Taylor coefficients
+        kinds, _ = host_syncs(call)
+        info = kinds.pop("svd info", 0)
+        assert kinds == {}, (name, kinds)
+        if name == "two-site":
+            assert info > 0 and info % (2 * (d - 1)) == 0, info
+        else:
+            assert info == 0, (name, info)
+    kinds, _ = host_syncs(lambda: evolve.evolve_tdvp(A, u0, 0.01, 3))
+    assert kinds == {"record fetch": 1, "host float": 1}, kinds
+
+
+def test_fused_tdvp_on_the_card_matches_host_loop_and_cpu(dev):
+    """One- and two-site TDVP at K=6 in f64 on the card: the fused form
+    against the host loop (vectors, norms 1e-12; ranks equal) and
+    against the port on the CPU (1e-10; the effective ranks at eps 0 count
+    roundoff-level singular values, so only the two card forms share
+    them)."""
+    from tensor_networks_tpu_torch.ops import evolve, qtt
+
+    def runs(where):
+        A = qtt.qtt_tridiagonal(6, 2.0, -1.0, -1.0, device=where)
+        u0 = qtt.qtt_exponential(6, c=3.0, device=where)
+        out = {}
+        for fused in (True, False):
+            u1, n1 = evolve.evolve_tdvp(A, tpk.pad_rank(u0, 4), 0.05, 4, fused=fused)
+            u2, n2, r2 = evolve.evolve_tdvp2(A, u0, 0.05, 4, max_rank=8, fused=fused)
+            out[fused] = ((_packed_on(u1, "cpu"), n1, None), (_packed_on(u2, "cpu"), n2, r2))
+        return out
+
+    def close(a, b, bar):
+        ref = float(tpk.norm_exact(b))
+        return float(tpk.norm_exact(tpk.add(a, tpk.scale(b, -1.0)))) <= bar * ref
+
+    card, cpu = runs(dev), runs("cpu")
+    for k in range(2):
+        (uf, nf, rf), (uh, nh, rh), (uc, nc, _) = card[True][k], card[False][k], cpu[True][k]
+        assert close(uf, uh, 1e-12) and close(uf, uc, 1e-10)
+        np.testing.assert_allclose(nf, nh, rtol=1e-12)
+        np.testing.assert_allclose(nf, nc, rtol=1e-10)
+        assert rf == rh

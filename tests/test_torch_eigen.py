@@ -27,6 +27,8 @@ compiles one whole program per shape, and its Lanczos recompiles its
 - a float32 Gram with subnormal entries whitens to W^T G W = I (1e-5).
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,6 +124,14 @@ def _up_to_sign(u, ref, tol):
     assert min(np.linalg.norm(u - ref), np.linalg.norm(u + ref)) <= tol * np.linalg.norm(ref)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_dense_ground_state(shift):
+    """The JAX package's dense solve of ``_local_problem()``: the
+    reference of the dense and the Lanczos case, computed once."""
+    return jeig._local_ground_state(*(jnp.asarray(a) for a in _local_problem()),
+                                    jnp.asarray(shift))
+
+
 @pytest.mark.parametrize("solver", ["dense", "lanczos", "mass"])
 def test_local_solvers_match_jax(solver):
     L, ak, R, Lg, Rg, pens = _local_problem()
@@ -129,14 +139,14 @@ def test_local_solvers_match_jax(solver):
     j = [jnp.asarray(a) for a in (L, ak, R, Lg, Rg, pens)]
     t = [torch.tensor(a) for a in (L, ak, R, Lg, Rg, pens)]
     if solver == "dense":
-        jl, jv = jeig._local_ground_state(*j, jnp.asarray(shift))
+        jl, jv = _jax_dense_ground_state(shift)
         tl, tv = teig._local_ground_state(*t, shift)
     elif solver == "lanczos":
         # against the JAX dense solve: the two packages' whitened bases
         # differ in eigenvector signs, so their Krylov sequences from
         # the shared seed differ until they span the alive space (3 * 2
         # * 4 = 24 directions); 30 steps go past breakdown
-        jl, jv = jeig._local_ground_state(*j, jnp.asarray(shift))
+        jl, jv = _jax_dense_ground_state(shift)
         tl, tv = teig._local_ground_state_lanczos(*t, shift, 30)
     else:
         # a PSD mass Lg (x) (I + 1/2) (x) Rg, one dead direction per Gram

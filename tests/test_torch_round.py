@@ -14,6 +14,7 @@ package's ``dw``), and gram's ghost ranks below its floor on the card
 smoke's d=12 train.
 """
 
+import functools
 import warnings
 
 import numpy as np
@@ -84,6 +85,16 @@ def _structure():
 CASES = {"doubled": _doubled, "contract": _contract, "structure": _structure}
 
 
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    """``CASES[case]()``, its free index order and dense value, built once
+    for the module (the JAX sums and contractions are the costly part);
+    every test rounds a deep copy or a port copy of the train."""
+    jt, eps, bound = CASES[case]()
+    order = [i.name for i in jt.free_indices()]
+    return jt, eps, bound, order, _dense(jt, order)
+
+
 def _round_both(jt, eps, method):
     """Round ``jt`` in both packages; returns (JAX, port) results, each
     (network, ranks, RuntimeWarning messages)."""
@@ -105,9 +116,7 @@ def test_method_matches_jax(method, case):
     (a + 1e-6 b at 1e-3) and a full-rank sum a + b kept whole at 1e-10;
     Below the Gram methods' f64 floor (~6e-8) both
     packages warn."""
-    jt, eps, bound = CASES[case]()
-    order = [i.name for i in jt.free_indices()]
-    dense = _dense(jt, order)
+    jt, eps, bound, order, dense = _case(case)
     (jr, jranks, jmsgs), (tr, tranks, tmsgs) = _round_both(jt, eps, method)
     assert tranks == jranks
     # the structure case keeps every rank up to its structural bound
@@ -209,7 +218,7 @@ def test_nan_breakdown_falls_back_to_the_householder_sweep(monkeypatch):
     """A NaN in any core of a GEMM sweep's result (here a middle core,
     which the last core's projection never sees) reroutes the call to
     the svd sweep with the JAX package's warning and counter."""
-    jt, _, _ = _doubled()
+    jt = _case("doubled")[0]
     order = [i.name for i in jt.free_indices()]
     real = tfast._tt_round_twosided_sweep
 
@@ -236,7 +245,7 @@ def test_sweep_returns_nan_on_a_breakdown(method):
     """A NaN inside a sweep (what a failed Cholesky leaves) comes out in
     the cores, as from the JAX sweeps, and raises nowhere on the way
     (``eigh`` and ``svd`` would raise on it)."""
-    jt, _, _ = _doubled()
+    jt = _case("doubled")[0]
     first, mids, last = tfast.stack_tt_cores(_to_torch(jt))
     mids = mids.clone()
     mids[2, 0, 0, 0] = float("nan")
@@ -251,7 +260,7 @@ def test_sweep_returns_nan_on_a_breakdown(method):
 
 
 def test_round_stats_count_each_method_and_unknown_runs_svd():
-    jt, _, _ = _doubled()
+    jt = _case("doubled")[0]
     tn = _to_torch(jt)
     for method in METHODS + ("no-such-method",):
         before = dict(tfast.ROUND_STATS)
@@ -266,7 +275,7 @@ def test_prefix_chain_precision_dw_matches_highest(monkeypatch):
     """f64 carries (``TNT_PREFIX_CHAIN_PREC=dw``, with its trust filters)
     give the same ranks and values within 1e-10 as ``highest``; ``dw``
     has its own, lower floor in the warning."""
-    jt, eps, _ = _doubled()
+    jt, eps = _case("doubled")[:2]
     order = [i.name for i in jt.free_indices()]
     out = {}
     for prec in ("highest", "dw"):
@@ -290,7 +299,7 @@ def test_prefix_chain_precision_dw_matches_jax(monkeypatch, train):
     within f32 roundoff through the inner product."""
     monkeypatch.setenv("TNT_PREFIX_CHAIN_PREC", "dw")
     if train == "doubled_f64":
-        jt, eps, bound = _doubled()
+        jt, eps, bound = _case("doubled")[:3]
     else:
         jt, eps, bound = _flat_spectrum_f32(), 1e-3, None
     (jr, jranks, jmsgs), (tr, tranks, tmsgs) = _round_both(jt, eps, "prefix")
@@ -302,10 +311,10 @@ def test_prefix_chain_precision_dw_matches_jax(monkeypatch, train):
         assert _sq_dist(jr, tr) <= 1e-9
     else:
         assert tranks == [4] * 6
-        order = [i.name for i in jt.free_indices()]
+        order, dense = _case("doubled")[3:]
         got = _dense(tr, order)
         assert _rel(got, _dense(jr, order)) <= 1e-10
-        assert _rel(got, _dense(jt, order)) <= bound
+        assert _rel(got, dense) <= bound
 
 
 def _chip_smoke_d12_train():
