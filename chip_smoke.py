@@ -26,8 +26,10 @@ nine phases:
    the grouped evaluation against the per-point kernel it replaced
    at 8192, 1000 and 300 points; the inner product's fused route against
    the chain (turns F C C F), the device time of each by kernel
-   (torch.profiler), the chain at ranks (256, 256) and (512, 300), and
-   the kernels with bf16 and f16 cores;
+   (torch.profiler), the chain at ranks (256, 256) and (512, 300)
+   against its plain version (turns P K K P) with its launches, share of
+   the bound and device time by kernel, and the kernels with bf16 and
+   f16 cores;
 4. every ``tt_round_fixed`` method on the main path's ``a + a``: kept
    ranks, error, wall time, device-busy time, kernel count and host
    syncs; ``torch.linalg.svd``'s drivers on the svd sweep's R factors;
@@ -59,9 +61,12 @@ nine phases:
    the plain f64 evaluation on the CPU, the error norm through the inner
    product kernel, wall, device-busy time, kernels and host syncs; the
    Gram families again above their floor; a summed HT (16 modes of 32,
-   rank 32, f64) rounded from its root, its structure hash checked; and
-   the inner product kernel's f64 instantiation timed at the main shape
-   and at the error norms' (200, 100);
+   rank 32, f64) rounded from its root, its structure hash checked; the
+   phase's calls of the inner product's chain route (ranks above 128)
+   replayed at their shapes, their summed device time (torch.profiler);
+   and the inner product kernel's f64 instantiation timed at the main
+   shape and at the error norms' (200, 100), the chain's launches and
+   device time by kernel there;
 7. TT-GMRES on the card, each solve with the launch counters reset just
    before and read just after: ``gmres_packed`` on ``bench.py``'s
    screened-Poisson QTT systems (delta 1, rhs exp(-3 i / 2^K), x0 the
@@ -163,11 +168,13 @@ def _f64(*xs):
 
 def _time_ms(fn, reps=20, warmup=3):
     """Mean ms per call over ``reps`` calls (CUDA events, after warm-up);
-    every output is summed into an accumulator that is checked finite."""
-    acc = None
+    every output is summed into an accumulator that is checked finite.
+    The warm-up runs the accumulation too: the first add of a process
+    loads its kernel, tens of ms that would otherwise fall inside the
+    timed calls."""
+    acc = fn().sum()
     for _ in range(warmup):
-        out = fn()
-        acc = out.sum() if acc is None else acc + out.sum()
+        acc = acc + fn().sum()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -682,14 +689,17 @@ def _device_us_by_kernel(fn, calls=5):
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
+                      (e.get("args", {}).get("grid") or [1, 1, 1])[-1])
                      for e in trace["traceEvents"]
                      if e.get("cat") == "kernel" and e.get("ph") == "X")
-    keys = ("zip_step", "zip_reduce", "zip_last", "gemm_tn", "reduce_splits",
-            "zipper_epilogue", "grouped_step", "grouped_finish", "group_tiles")
+    keys = ("zip_step", "zip_reduce", "zip_last", "zip_sum", "tile_gemm", "gemm_tn",
+            "grouped_step", "grouped_finish", "group_tiles")
     out, prev_end = {}, None
-    for start, end, name in kernels:
+    for start, end, name, grid_z in kernels:
         key = next((k for k in keys if k in name), name[:40])
+        if key == "tile_gemm" and grid_z > 1:  # the chain's second product
+            key = "tile_gemm split-K"
         share = end - max(start, prev_end) if prev_end is not None else end - start
         us, count = out.get(key, (0.0, 0.0))
         out[key] = (us + max(share, 0.0) / calls, count + 1 / calls)
@@ -731,7 +741,7 @@ def phase_zipper_routes(zp, a, b, res):
               "(5 calls, the gaps between calls included)")
     print(f"  inner fused: the host enqueues one call in {host_ms:.4f} ms")
     g = torch.Generator(device=a[0].device).manual_seed(SEED + 3)
-    big = {}
+    large = {}
     for ra, rb in ((256, 256), (512, 300)):
         x = list(_train(g, D, N, ra, 1 / math.sqrt(N * ra)))
         y = list(_train(g, D, N, rb, 1 / math.sqrt(N * rb)))
@@ -740,16 +750,36 @@ def phase_zipper_routes(zp, a, b, res):
         k = lambda: zp.tt_inner_cuda(*x, *y)  # noqa: E731
         p = lambda: zp.tt_inner_plain(*x, *y)  # noqa: E731
         t = [_time_ms(p, 5, 1), _time_ms(k, 5, 1), _time_ms(k, 5, 1), _time_ms(p, 5, 1)]
-        bnd = _inner_bound(x, y)[0]
-        big[(ra, rb)] = (t[1] + t[2]) / 2
-        print(f"  inner chain at (r_a, r_b) = ({ra}, {rb}), d={D} n={N}: "
-              f"{big[(ra, rb)]:.4f} ms ({zp.tt_inner_cuda.last_device_launches} "
-              f"device launches), plain {(t[0] + t[3]) / 2:.4f} ms, bound "
-              f"{bnd:.4f} ms ({100 * bnd / big[(ra, rb)]:.1f}%)")
-        del x, y
+        large[f"{ra}x{rb}"] = _chain_row(zp, x, y, k, p, t)
     err = (chain().double() - zp.tt_inner_plain(*a, *b).double()).abs().item()
     return {"ms": ms_c, "plain_ms": res["inner"]["plain_ms"], "max_abs_err": err,
-            "bound_ms": bound, "bound_by": res["inner"]["bound_by"]}
+            "bound_ms": bound, "bound_by": res["inner"]["bound_by"], "large": large}
+
+
+def _chain_row(zp, x, y, kernel, plain, runs, fma_bound=None):
+    """The chain's row at one large shape (``kernel`` calls the router,
+    ``tt_inner_cuda``), timed P K K P (``runs``): kernel and plain ms,
+    its device launches, the bound and the share of
+    it reached, the error against the plain version in the cores' dtype
+    and each kernel's device time a call (torch.profiler); printed."""
+    ms, plain_ms = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+    launches = zp.tt_inner_cuda.last_device_launches
+    bound, by = _inner_bound(x, y)
+    err = (kernel().double() - plain().double()).abs().item()
+    parts, span = _device_us_by_kernel(kernel)
+    ra, rb = x[0].shape[1], y[0].shape[1]
+    print(f"  inner chain at (r_a, r_b) = ({ra}, {rb}) {str(x[0].dtype)[6:]}, d={D} n={N}: "
+          f"{ms:.4f} ms ({launches} device launches), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached"
+          + (f"; {fma_bound:.4f} ms at the FMA rate" if fma_bound else "")
+          + f"), |chain - plain| {err:.3e}; runs " + ",".join(f"{v:.4f}" for v in runs))
+    print("    by kernel a call (torch.profiler trace): "
+          + ", ".join(f"{k} {us:.1f} us over {c:g} launches" for k, (us, c) in parts.items())
+          + f"; busy {sum(us for us, _ in parts.values()) / 1e3:.4f} ms of a "
+          f"{span / 1e3:.4f} ms span")
+    return {"ms": ms, "plain_ms": plain_ms, "runs_ms": runs, "max_abs_err": err,
+            "bound_ms": bound, "bound_by": by, "device_launches": launches,
+            "by_kernel_us": {k: us for k, (us, _) in parts.items()}}
 
 
 def phase_half_timings(zp, ev, dev):
@@ -1741,9 +1771,13 @@ def phase_rounding_families(zp, ev, a, inds, idx_np, dev):
     zp.tt_inner_chain_cuda.launches = 0
     _reset_evaluate_counts(ev)
     out = {}
-    for dtype, eps in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
-        out[str(dtype)[6:]] = _round_leg(tnt, packed, a, inds, idx_np, ref_cpu, dtype, eps)
-    out["ht"] = _ht_leg(tnt, dev)
+    chain_calls, restore = _record_chain_calls(zp)
+    try:
+        for dtype, eps in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
+            out[str(dtype)[6:]] = _round_leg(tnt, packed, a, inds, idx_np, ref_cpu, dtype, eps)
+        out["ht"] = _ht_leg(tnt, dev)
+    finally:
+        restore()
     torch.cuda.synchronize()
     launches = {"zipper": zp.tt_inner_cuda.launches,
                 "chain": zp.tt_inner_chain_cuda.launches,
@@ -1759,8 +1793,56 @@ def phase_rounding_families(zp, ev, a, inds, idx_np, dev):
                             _sig(r["err"]), _sig(r["err_norm"])]
                      for name, r in out[key].items()}
     line["columns"] = ["wall_ms", "busy_ms", "kernels", "syncs", "err", "err_norm"]
+    line["chain_calls"] = _chain_calls_device_ms(zp, chain_calls, dev)
     print(json.dumps({"rounding_families": _sig(line)}, separators=(",", ":")))
     return out, launches
+
+
+def _record_chain_calls(zp):
+    """Keep the core shapes and dtype of every call of H1's chain route
+    (the router and ``tt_inner_chain_cuda`` look ``_chain`` up at call
+    time); returns the list and the function that restores the route."""
+    calls, route = [], zp._chain
+
+    def recording(fa, ma, la, fb, mb, lb, *dims):
+        calls.append((tuple(None if x is None else tuple(x.shape)
+                            for x in (fa, ma, la, fb, mb, lb)), fa.dtype))
+        return route(fa, ma, la, fb, mb, lb, *dims)
+
+    zp._chain = recording
+    return calls, lambda: setattr(zp, "_chain", route)
+
+
+def _chain_calls_device_ms(zp, calls, dev):
+    """A phase's chain calls replayed in order at their shapes and dtypes
+    on random cores (mids scaled 1/sqrt(n r)), after one untimed pass:
+    their summed device time (the union of their kernels' intervals,
+    torch.profiler), kernels and the calls by shape; printed."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    cores = {}
+
+    def core(shape, dtype):
+        if shape is not None and (shape, dtype) not in cores:
+            scale = 1 / math.sqrt(shape[2] * shape[3]) if len(shape) == 4 else 1.0
+            cores[(shape, dtype)] = _rand(g, *shape, scale=scale, dtype=dtype)
+        return None if shape is None else cores[(shape, dtype)]
+
+    args = [[core(sh, dtype) for sh in shapes] for shapes, dtype in calls]
+    run = lambda: [zp.tt_inner_chain_cuda(*x) for x in args]  # noqa: E731
+    run()
+    _, busy, kernels, _ = _device_profile(run)
+    by_shape = {}
+    for shapes, dtype in calls:
+        mids = shapes[1]
+        d, n = (mids[0] + 2, mids[2]) if mids else (2, shapes[0][0])
+        key = f"{shapes[0][1]}x{shapes[3][1]} {zp.DTYPE_SUFFIX[dtype]} d={d} n={n}"
+        by_shape[key] = by_shape.get(key, 0) + 1
+    print(f"  chain calls: {len(calls)} ("
+          + ", ".join(f"{k} x{c}" for k, c in by_shape.items())
+          + f"), summed device time {busy:.4f} ms over {kernels} kernels "
+          "(replayed at their shapes under torch.profiler)")
+    del args, cores
+    return {"calls": len(calls), "busy_ms": busy, "kernels": kernels, "by_shape": by_shape}
 
 
 def phase_inner_f64_timings(zp, pa, pb, dev):
@@ -1789,6 +1871,9 @@ def phase_inner_f64_timings(zp, pa, pb, dev):
         rows[key] = {"ms": (runs[1] + runs[2]) / 2, "plain_ms": (runs[0] + runs[3]) / 2,
                      "max_abs_err": err, "rel_err": rel, "bound_ms": bound, "bound_by": by,
                      "fma_bound_ms": fma_ms, "route": route}
+        if route == "chain":  # launches and device time by kernel, as phase 3's
+            rows[key].update({f: v for f, v in _chain_row(zp, a, b, k, p, runs, fma_ms).items()
+                              if f in ("device_launches", "by_kernel_us")})
         print(f"  H1 f64 d={D} n={N} (r_a, r_b) = ({a[0].shape[1]}, {b[0].shape[1]}), "
               f"{route} route: kernel {rows[key]['ms']:.4f} ms, plain "
               f"{rows[key]['plain_ms']:.4f} ms, bound {bound:.4f} ms by {by} at 67 TFLOP/s "
@@ -2899,6 +2984,7 @@ def _kernel_numbers(t):
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
     for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                        ("large", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
                         ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms")),
                         ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
                         ("solvers", ("ms", "plain_ms", "bound_ms", "max_abs_err")),

@@ -144,9 +144,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     as ``void*``, sizes as ``int``); each returns a ``cudaError_t``."""
     for suffix in DTYPE_SUFFIXES:
         fn = getattr(lib, f"tnt_zipper_{suffix}")
-        # fa ma la fb mb lb, w t part out, n0 n nl ra rb d_mid splits,
-        # stream
-        fn.argtypes = [_PTR] * 10 + [_INT] * 7 + [_PTR]
+        # fa ma la fb mb lb, w t part out, n0 n nl ra rb d_mid,
+        # tile splits kchunk, stream
+        fn.argtypes = [_PTR] * 10 + [_INT] * 9 + [_PTR]
         fn.restype = _INT
         fn = getattr(lib, f"tnt_zipper_fused_{suffix}")
         # fa ma la fb mb lb, w part out, n0 n nl ra rb d_mid nbands tmax,

@@ -4,29 +4,34 @@ Replaces the JAX package's Pallas zippers
 ``tensor_networks_tpu/kernels/pallas_ops.py::tt_inner_pallas`` (K1, :502)
 and ``::tt_inner_pallas_fused`` (K2, :229); the kernel source is
 ``csrc/zipper.cu``.  One C call runs the whole inner product, so one
-wrapper call is one inner product, as K2 was one dispatch.  Two routes,
+wrapper call is one inner product, as K2 was one dispatch.  Every launch
+after a call's first is a programmatic dependent launch.  Two routes,
 chosen by rank before any launch (:func:`takes_fused_route`):
 
 * the fused route, max(r_a, r_b) <= :data:`FUSED_MAX_RANK`: per middle
   core pair one ``zip_step`` (a block per mode and band of rows computes
   A_i^T W B_i with both products in shared memory) and one ``zip_reduce``
-  (the sum over modes in a fixed order), chained by programmatic
-  dependent launch; 1 + 2 (d-2) + 1 launches.  :func:`band_plan` cuts the
-  rows into bands;
-* the chain (:func:`tt_inner_chain_cuda`), above that rank: a prologue
-  GEMM, two GEMM launches per core pair (the second split along K and
-  reduced), one epilogue; ~3 (d-2) + 2 launches.
+  (the sum over modes in a fixed order); 1 + 2 (d-2) + 1 launches.
+  :func:`band_plan` cuts the rows into bands;
+* the chain (:func:`tt_inner_chain_cuda`), above that rank: per core pair
+  t = W^T A_k and W' = t^T B_k through one pipelined tile GEMM
+  (``tile_gemm``: a 4-stage ``cp.async`` ring of 16-deep K-slabs; f32 and
+  the 2-byte cores on FP32 FMA in 128 x 128 tiles, 8 x 8 outputs a
+  thread, one block an SM; f64 on the FP64 tensor cores, ``mma.sync``
+  m16n8k4, in 64 x 64 tiles), the second product split along K and its
+  slabs summed by ``zip_reduce``, then ``zip_last`` on several blocks and
+  ``zip_sum``; 1 + 3 (d-2) + 2 launches, 147 at d=50.
+  :func:`chain_plan` picks the tile and the split.
 
 What bounds it on the H100: at d=50, n=32, r=100 one inner product is
 ~6.1 GFLOP over ~123 MB of cores, so it is FP32-FMA-bound: ~90 us at
-67 TFLOP/s against ~37 us at 3.35 TB/s.  Both routes use plain FMA, no
-tensor cores.
+67 TFLOP/s against ~37 us at 3.35 TB/s.  f32 stays on FMA (one TF32
+pass does not keep its accuracy); f64 runs on DMMA.
 
 Cores may be float32, float64, bfloat16 or float16, at any rank.  The
-kernels convert 2-byte cores to float32 as they load them, keep the
-carry W and every product in float32, and return the result in the
-cores' dtype, as the JAX package does; the wrappers allocate the
-float32 scratch.
+kernels keep the carry W and every product of 2-byte cores in float32
+and return the result in the cores' dtype, as the JAX package does; the
+wrappers allocate the float32 scratch.
 
 Routing: :func:`tt_inner` sends CUDA tensors to the kernels (which raise
 on what they cannot take) and CPU tensors to :func:`tt_inner_plain`.
@@ -55,8 +60,17 @@ DTYPE_SUFFIX = {
 #: ranks up to this take the fused route; its shared memory (A slice, U,
 #: two rings) fits one block at this rank in float64 too
 FUSED_MAX_RANK = 128
-_SPLIT_TILE = 64  # the chain's GEMM output tile edge
-_SPLIT_BK = 16  # the chain's GEMM K step
+#: the chain GEMM's tiles by code, (BM, BN), as csrc/zipper.cu has them:
+#: 0 computes in float on the FMA pipes (256 threads, 8 x 8 outputs each,
+#: one block an SM), 1 in double on the FP64 tensor cores (4 warps of
+#: 32 x 32, two blocks an SM)
+CHAIN_TILES = {0: (128, 128), 1: (64, 64)}
+_DMMA_TILE = 1
+_CHAIN_BK = 16  # depth of a K-slab
+_CHAIN_NSTAGE = 4  # K-slabs in a ring
+_CHAIN_MIN_SLABS = 12  # K-slabs a split keeps at least, where K allows
+#: a float tile's block asks for more than half an SM's shared memory
+_EXCLUSIVE_SMEM = 116 * 1024
 # the fused step's geometry, as csrc/zipper.cu has it
 _STEP_TM = 4  # band rows per thread; bands start at multiples of it
 _STEP_NJ = 1  # 16-byte column packs per thread
@@ -105,13 +119,6 @@ def _check_precision(precision: str) -> None:
         raise ValueError(
             f"precision must be one of {PRECISIONS}, got {precision!r}"
         )
-
-
-def _splits(sms: int, ra: int, rb: int, k: int) -> int:
-    """K-splits for the chain step's second GEMM: enough partial tiles for
-    two blocks per SM, at most one split per K step."""
-    tiles = math.ceil(ra / _SPLIT_TILE) * math.ceil(rb / _SPLIT_TILE)
-    return max(1, min(math.ceil(2 * sms / tiles), math.ceil(k / _SPLIT_BK)))
 
 
 def takes_fused_route(ra: int, rb: int) -> bool:
@@ -176,13 +183,61 @@ def band_plan(ra: int, rb: int, n: int, dtype: torch.dtype, sms: int) -> BandPla
     return next(plan for fill, plan in plans if fill >= 0.95 * best)
 
 
+class ChainPlan(NamedTuple):
+    tile: int  # CHAIN_TILES code of both products of a step
+    splits: int  # K-ranges of the second product, W' = t^T B_k (K = r_b n)
+    kchunk: int  # rows of each K-range, a whole number of K-slabs
+    threads: int  # threads of a block
+    smem: int  # dynamic shared memory a block asks for, bytes
+
+
+def chain_plan(ra: int, rb: int, n: int, dtype: torch.dtype, sms: int) -> ChainPlan:
+    """The chain's tile and K-split for cores of ``dtype`` on ``sms`` SMs.
+
+    f64 takes the DMMA tile (64 x 64, two blocks an SM); float32 and the
+    2-byte cores (float32 arithmetic, raw 2-byte ring) the 128 x 128 FMA
+    tile, one block an SM: its block asks for ``_EXCLUSIVE_SMEM`` (16-byte
+    rows) or fills the SM's registers.  The first product, t = W^T A_k,
+    is not split.  The second, W' = t^T B_k (K = r_b n), is split into as
+    many K-ranges as its output tiles leave room for in one wave of
+    resident blocks, each keeping at least ``_CHAIN_MIN_SLABS`` K-slabs
+    where K allows; every range but the last has ``kchunk`` rows
+    (:func:`split_ranges`).  Measured on the H100 (``PERF.md``): smaller
+    float tiles, two float blocks an SM, and a second wave of a few
+    blocks were each slower.
+    """
+    item = torch.empty((), dtype=dtype).element_size()
+    tile = _DMMA_TILE if dtype == torch.float64 else 0
+    bm, bn = CHAIN_TILES[tile]
+    if tile == _DMMA_TILE:
+        per_sm, threads = 2, 128
+        smem = _CHAIN_NSTAGE * _CHAIN_BK * ((bm + 4) + (bn + 4)) * 8
+    else:
+        per_sm, threads = 1, bm * bn // 64
+        smem = max(_CHAIN_NSTAGE * _CHAIN_BK * (bm * 4 + bn * item), _EXCLUSIVE_SMEM)
+    k = rb * n
+    slabs = math.ceil(k / _CHAIN_BK)
+    fit = sms * per_sm // (math.ceil(ra / bm) * math.ceil(rb / bn))
+    splits = max(1, min(fit, slabs // _CHAIN_MIN_SLABS))
+    kchunk = math.ceil(slabs / splits) * _CHAIN_BK
+    return ChainPlan(tile, math.ceil(k / kchunk), kchunk, threads, smem)
+
+
+def split_ranges(k: int, kchunk: int) -> list:
+    """The (start, stop) rows of K that each split of the second product
+    sums, as ``tile_gemm`` computes them from its z index."""
+    return [(z * kchunk, min(k, (z + 1) * kchunk)) for z in range(math.ceil(k / kchunk))]
+
+
 def device_launches(d_mid: int, fused: bool, splits: int = 1) -> int:
     """Kernel launches of one inner product: the fused route makes
-    1 + 2 (d-2) + 1; the chain 1 + (2 or 3) (d-2) + 1, with a reduce of
-    the split-K partials in each step when its second GEMM is split."""
+    1 + 2 (d-2) + 1; the chain 1 + (2 or 3) (d-2) + 2, with a
+    ``zip_reduce`` of the split-K slabs in each step when its second
+    product is split (``chain_plan(...).splits`` > 1) and ``zip_sum``
+    after its multi-block ``zip_last``."""
     if fused:
         return 2 + 2 * d_mid
-    return 2 + d_mid * (3 if splits > 1 else 2)
+    return 3 + d_mid * (3 if splits > 1 else 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,25 +290,25 @@ def _chain(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):
     dev, dtype = fa.device, fa.dtype
     acc = acc_dtype(dtype)
     lib = _build.cuda_library()
-    splits = _splits(_sm_count(dev.index), ra, rb, rb * n) if d_mid else 1
+    plan = chain_plan(ra, rb, n, dtype, _sm_count(dev.index)) if d_mid else None
+    splits = plan.splits if plan else 1
     with torch.cuda.device(dev):
         w = torch.empty(ra * rb, device=dev, dtype=acc)
-        t = torch.empty(max(rb * n * ra, 1), device=dev, dtype=acc)
-        part = torch.empty(splits * ra * rb, device=dev, dtype=acc)
+        # t also takes zip_last's block sums (at most ra)
+        t = torch.empty(max(rb * n * ra, ra), device=dev, dtype=acc)
+        part = torch.empty(splits * ra * rb if splits > 1 else 1, device=dev, dtype=acc)
         out = torch.empty((), device=dev, dtype=dtype)
         fn = getattr(lib, f"tnt_zipper_{DTYPE_SUFFIX[dtype]}")
         rc = fn(
             _ptr(fa), _ptr(ma), _ptr(la), _ptr(fb), _ptr(mb), _ptr(lb),
             w.data_ptr(), t.data_ptr(), part.data_ptr(), out.data_ptr(),
-            n0, n, nl, ra, rb, d_mid, splits,
+            n0, n, nl, ra, rb, d_mid,
+            plan.tile if plan else 0, splits, plan.kchunk if plan else 0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "tt_inner_chain_cuda")
     tt_inner_chain_cuda.launches += 1
-    # the kernel's gemm() rounds the split count to whole K steps
-    k = rb * n
-    kchunk = math.ceil(math.ceil(k / splits) / _SPLIT_BK) * _SPLIT_BK
-    return out, device_launches(d_mid, False, math.ceil(k / kchunk) if d_mid else 1)
+    return out, device_launches(d_mid, False, splits)
 
 
 def _fused(fa, ma, la, fb, mb, lb, n0, n, nl, ra, rb, d_mid):

@@ -88,6 +88,55 @@ def test_zipper_kernel_matches_plain(dev, dtype, d, n, ra, rb):
             assert torch.equal(got, route(*x, *y))
 
 
+def _view_at_offset(x, offset):
+    """x copied into a buffer ``offset`` values in: a contiguous view
+    whose rows are not 16-byte aligned (the chain's narrow copies)."""
+    if x is None:
+        return None
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# above the fused route: odd ranks (129, 131: no 16-byte rows), the timed
+# (256, 300), and past the old 512 limit; r_a != r_b, each way round
+CHAIN_RANKS = [(129, 131), (131, 129), (256, 300), (300, 256), (513, 1024), (1024, 513)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d,n", [(2, 1), (3, 2), (6, 32)])
+@pytest.mark.parametrize("ra,rb", CHAIN_RANKS)
+def test_chain_matches_plain_above_the_fused_route(dev, dtype, d, n, ra, rb):
+    """The chain's tile GEMM against the f64 plain zipper on the same
+    (rounded) cores, at aligned cores and at views 4 bytes in (8 for
+    f64), each twice for the same bits; the router sends these ranks to
+    the chain.  Trains scaled to |a| ~ 1 so f16 holds them."""
+    g = torch.Generator().manual_seed(ra + 7 * rb + 31 * n + d)
+    cores = []
+    for r in (ra, rb):
+        ends = (n * n * r) ** -0.25
+        first, mids, last = _train(g, max(d, 3), n, r, torch.float64, dev,
+                                   n0=n + 1, nl=n + 2)
+        cores.append([first * ends, mids if d > 2 else None, last * ends])
+    offset = max(1, 4 // torch.empty((), dtype=dtype).element_size())
+    for shift in (0, offset):
+        a, b = ([_view_at_offset(None if x is None else x.to(dtype), shift) for x in c]
+                for c in cores)
+        a64, b64 = _f64(a), _f64(b)
+        na = math.sqrt(tzp.tt_inner_plain(*a64, *a64).item())
+        nb = math.sqrt(tzp.tt_inner_plain(*b64, *b64).item())
+        for x, y, x64, y64, scale in ((a, b, a64, b64, na * nb), (a, a, a64, a64, na * na)):
+            ref = tzp.tt_inner_plain(*x64, *y64).item()
+            chain, fused = tzp.tt_inner_chain_cuda.launches, tzp.tt_inner_cuda.fused
+            got = tzp.tt_inner_cuda(*x, *y)
+            assert (tzp.tt_inner_chain_cuda.launches, tzp.tt_inner_cuda.fused) == (chain + 1, fused)
+            assert got.dtype == dtype and got.shape == ()
+            assert abs(got.double().item() - ref) <= TOL[dtype] * scale
+            assert torch.equal(got, tzp.tt_inner_chain_cuda(*x, *y))
+
+
 def test_inner_entry_points_take_the_fused_route(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     inds = [Index(f"x{k}", 4) for k in range(6)]

@@ -214,8 +214,16 @@ def test_band_plan_at_the_main_shape():
 
 def test_zipper_device_launches():
     assert tzp.device_launches(48, True) == 98  # 1 + 2 (d-2) + 1 at d=50
-    assert tzp.device_launches(48, False, splits=3) == 146
-    assert tzp.device_launches(0, True) == tzp.device_launches(0, False) == 2
+    # the chain at d=50: prologue, 48 x (two tile_gemm + the split-K
+    # zip_reduce), zip_last on several blocks and zip_sum, at each shape
+    # the chain is timed at
+    for ra, rb, dtype in ((256, 256, torch.float32), (512, 300, torch.float32),
+                          (200, 100, torch.float64)):
+        splits = tzp.chain_plan(ra, rb, 32, dtype, 132).splits
+        assert tzp.device_launches(48, False, splits) == 147
+    assert tzp.device_launches(48, False, splits=1) == 99
+    assert tzp.device_launches(0, True) == 2
+    assert tzp.device_launches(0, False) == 3
 
 
 @pytest.mark.parametrize("r", [3, tzp.FUSED_MAX_RANK + 1])
@@ -231,3 +239,42 @@ def test_cpu_inner_takes_the_plain_zipper_on_either_side_of_the_route(r):
             tzp.tt_inner_chain_cuda.launches) == counts
     with pytest.raises(ValueError, match="CUDA"):
         tzp.tt_inner_chain_cuda(f, m, l, f, m, l)
+
+
+CHAIN_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", CHAIN_DTYPES)
+@pytest.mark.parametrize(
+    "ra,rb",
+    [(129, 131), (131, 129), (256, 300), (300, 256), (200, 129), (129, 1024),
+     (513, 1024), (1024, 513)],
+)
+def test_chain_plan_fits_and_splits_k_once(dtype, ra, rb):
+    """Every plan fits one block, takes the DMMA tile exactly in f64, and
+    its splits cover K = r_b n once, in order, none empty, each of whole
+    K-slabs and at least 12 of them where K allows."""
+    for n in (1, 2, 32):
+        plan = tzp.chain_plan(ra, rb, n, dtype, 132)
+        assert plan.smem <= 232448 and plan.threads <= 1024
+        assert (plan.tile == tzp._DMMA_TILE) == (dtype == torch.float64)
+        assert plan.tile in tzp.CHAIN_TILES
+        k = rb * n
+        ranges = tzp.split_ranges(k, plan.kchunk)
+        assert len(ranges) == plan.splits >= 1
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(stop > start for start, stop in ranges)
+        assert all(b[0] == a[1] for a, b in zip(ranges, ranges[1:]))
+        assert plan.kchunk % 16 == 0
+        assert plan.splits == 1 or plan.kchunk >= 12 * 16
+
+
+def test_chain_plan_at_the_timed_shapes():
+    """d=50, n=32 on 132 SMs, one float block an SM. (256, 256): 2 x 64
+    tiles of 128 x 128 for t = W^T A_k, 4 tiles x 32 splits of 16 K-slabs
+    for W' = t^T B_k. (512, 300): 12 tiles x 11 splits of 55 slabs.
+    (200, 100) f64: 64 x 64 DMMA tiles, two blocks an SM, 8 tiles x 16
+    splits of 13 slabs."""
+    assert tzp.chain_plan(256, 256, 32, torch.float32, 132) == (0, 32, 256, 256, 118784)
+    assert tzp.chain_plan(512, 300, 32, torch.float32, 132) == (0, 11, 880, 256, 118784)
+    assert tzp.chain_plan(200, 100, 32, torch.float64, 132) == (1, 16, 208, 128, 69632)
