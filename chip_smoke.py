@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-nine phases:
+ten phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -116,11 +116,30 @@ nine phases:
    f64, 10 steps) observing the energy through H1, against the discrete
    solution in the eigenbasis; (e) ``tdvp_trajectory``'s autograd on the
    card against central differences; H1 and H2 at (a)'s and (d)'s shapes
-   against their plain versions.
+   against their plain versions;
+10. tight rounding, fitting, the serving export and profiling on the
+   card, TF32 off, H1's and H2's launch counters reset just before each
+   leg and read just after: (a) ``tt_round_tight`` on the main path's
+   ``a + a`` with each sweep, f32 at eps 1e-6 and f64 at 1e-12: exact
+   ranks, the pointwise error through H2's f64 instantiation (1e-5 of
+   max|2a| in f32), the error norm within 2 eps (H1 on the f64
+   difference train; ``norm_exact`` in f64), wall, busy, kernels and
+   host syncs by kind, the batched sweep's syncs the same at d=12, and
+   the f32 ``tt_round_fixed`` reading at the same eps beside them; (b)
+   ``fit_network_als`` at d=10, n=32, rank 4 on 2^20 observations in
+   f64 (``solver_witness.completion_problem``), its per-sweep errors
+   held to the port's CPU readings, ms a sweep, the completion error
+   through H2; (c) ``fit_network`` at ``tests/test_fit.py``'s d=5
+   configuration and bars, then 50 full-batch steps at d=10, n=32, rank
+   8, batch 2^16 timed; (d) ``export_evaluator`` of the main path's
+   train served at batches 1 to 65536 against H2 (1e-4 of max|ref|),
+   saved and served by a process that imports only torch and numpy,
+   its values swapped for a second train's; (e) one (a) call under
+   ``profiling.trace`` holding an ``annotate`` region and kernels.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
-one with per-kernel results,
+one with phase 10's (``slice12``), one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -2964,6 +2983,374 @@ def phase_evolve(zp, ev, dev):
     return out, kernels_at, launches
 
 
+# -- phase 10: tight rounding, fitting, the serving export, profiling ----------------
+
+#: 10a's budgets (f32, f64) and the f32 pointwise bar (of max|2a|)
+TIGHT_EPS = {torch.float32: 1e-6, torch.float64: 1e-12}
+TIGHT_POINT_BAR = 1e-5
+#: 10b's bars, just above the port's CPU readings at the same seed
+#: (``solver_witness.py port fit``): the errors of the first three sweeps
+#: (held within 1e-6 relative or 1e-12 absolute), the last of 20 sweeps'
+#: (0.99536120147) and the held-out completion error (1.0003853555).  From
+#: a random start neither the additive target nor the exact rank-4 one
+#: (0.9622 after 20 sweeps) leaves ALS's plateau within 20 sweeps at
+#: d=10, n=32 on the CPU; the leg holds the card to the CPU's
+#: trajectory, not to convergence (10c and the CPU tests hold convergence)
+FIT_CPU = {"first3": (0.99879246578, 0.99766625257, 0.99704255572), "last": 0.99537,
+           "completion": 1.00040}
+#: 10c: tests/test_fit.py::test_fit_completes_low_rank_tt's configuration
+#: and bars, then the timing leg's (d, n, rank, batch, steps)
+FIT_GRAD_BARS = {"loss_drop": 1e-4, "completion": 0.05}
+FIT_TIMING = (10, 32, 8, 2**16, 50)
+#: 10d's request sizes and bar (of max|ref|, phase 2's)
+EXPORT_BATCHES, EXPORT_BAR = (1, 17, 4096, 8192, 65536), 1e-4
+
+
+def _cast_train(tn, dtype):
+    out = tn.__deepcopy__({})
+    for node in out.network.nodes:
+        out.node_tensor(node).update_val_size(out.value(node).to(dtype))
+    return out
+
+
+def _tight_leg(tnt, zp, ev, a, inds, idx_np, ref_cpu):
+    """10a: ``tt_round_tight`` on the main path's ``a + a`` with each
+    sweep, in f32 at eps 1e-6 and on the same cores in f64 at 1e-12;
+    kept ranks, pointwise error through H2's f64 instantiation, error
+    norm (H1 on the f64 difference train for f32, ``norm_exact`` for
+    f64), wall, busy, kernels and host syncs by kind; the batched sweep
+    again at d=12 (its syncs must not grow with d); ``tt_round_fixed``'s
+    f32 reading at the same eps as the yardstick."""
+    import warnings
+
+    from tensor_networks_tpu_torch import packed
+    from tensor_networks_tpu_torch.ops.tight import tt_round_tight
+
+    want = [N] + [R] * (D - 3) + [N]
+    scale = 2 * np.abs(ref_cpu).max()
+    rows, kernels_at = {}, None
+    for dtype, eps in TIGHT_EPS.items():
+        x = _cast_train(a, dtype) + _cast_train(a, dtype)
+        px64 = _double(packed, _pack_chain(x, 2 * R))
+        for sweep in ("batched", "sequential"):
+            def call():
+                return tt_round_tight(copy.deepcopy(x), eps, sweep=sweep)
+
+            call()  # the first call at these shapes, untimed
+            (y, ranks), row = _solver_run(call, zp, ev)
+            got = y.evaluate(inds, idx_np, precision="dw")
+            row["err"] = float(np.abs(got - 2 * ref_cpu).max() / scale)
+            pdiff = _double(packed, _pack_chain(x - y, 3 * R))
+            if dtype == torch.float32:
+                row["err_norm"] = math.sqrt(max(packed.inner(pdiff, pdiff).item(), 0.0)
+                                            / packed.inner(px64, px64).item())
+            else:
+                row["err_norm"] = (packed.norm_exact(pdiff) / packed.norm_exact(px64)).item()
+            row["launches_checks"] = _counts(zp, ev)
+            if kernels_at is None:  # H1 at the error norms' |x|^2 shape, H2 at x's points
+                kernels_at = _h1_h2_at(zp, ev, px64, px64,
+                                       torch.from_numpy(idx_np).to(px64.first.device))
+            key = f"{str(dtype)[6:]}_{sweep}"
+            rows[key] = row
+            bars = (ranks == want, row["err_norm"] <= 2 * eps,
+                    dtype == torch.float64 or row["err"] <= TIGHT_POINT_BAR,
+                    np.all(np.isfinite(got)))
+            if not all(bars):
+                raise AssertionError(f"phase 10 10a {key}: ranks {ranks}, pointwise "
+                                     f"{row['err']:.3e}, error norm {row['err_norm']:.3e}")
+    # the batched sweep's syncs at d=12: the same count as at d=50
+    g = torch.Generator(device=a.value(0).device).manual_seed(SEED + 60)
+    inds12 = inds[:12]
+    a12 = tnt.TensorNetwork.rand_tt(inds12, [R] * 11, dtype=torch.float32,
+                                    device=a.value(0).device, generator=g)
+    for k in range(1, 11):
+        a12.node_tensor(k).update_val_size(a12.value(k) / math.sqrt(N * R))
+    x12 = a12 + a12
+    call12 = lambda: tt_round_tight(copy.deepcopy(x12), 1e-6)  # noqa: E731
+    call12()
+    (_, ranks12), rows["d12_batched"] = _solver_run(call12, zp, ev)
+    if ranks12 != [N] + [R] * 9 + [N] or rows["d12_batched"]["syncs"] != \
+            rows["float32_batched"]["syncs"]:
+        raise AssertionError(f"phase 10 10a d=12: ranks {ranks12}, syncs "
+                             f"{rows['d12_batched']['syncs']} against d=50's "
+                             f"{rows['float32_batched']['syncs']}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # below its noise floor, as asked
+        x = a + a
+        y, _ = tnt.tt_round_fixed(x, TIGHT_EPS[torch.float32])
+    rows["fixed_f32"] = {"err": float(np.abs(y.evaluate(inds, idx_np, precision="dw")
+                                             - 2 * ref_cpu).max() / scale)}
+    return rows, kernels_at
+
+
+def _fit_als_leg(tnt, zp, ev, dev):
+    """10b: ``fit_network_als`` on solver_witness.completion_problem
+    (d=10, n=32, rank 4, 2^20 observations, f64) against the port's CPU
+    readings; the completion error through H2."""
+    from solver_witness import FIT_SWEEPS, FIT_TOL, completion_problem
+    from tensor_networks_tpu_torch import packed
+    from tensor_networks_tpu_torch.fit import completion_error, fit_network_als
+
+    inds, model, idx, y, hold, y_hold = completion_problem(tnt, dev)
+    fitted = {}
+
+    def call():
+        fitted["net"] = copy.deepcopy(model)
+        return fit_network_als(fitted["net"], inds, idx, y, sweeps=FIT_SWEEPS, tol=FIT_TOL)
+
+    fit_network_als(copy.deepcopy(model), inds, idx, y, sweeps=1)  # untimed first call
+    errs, row = _solver_run(call, zp, ev)
+    row.update(sweeps=len(errs), errs=errs, ms_per_sweep=row["event_ms"] / len(errs))
+    row["completion"] = completion_error(fitted["net"], inds, hold, y_hold)
+    row["launches_checks"] = _counts(zp, ev)
+    first3 = all(abs(e - c) <= max(1e-6 * abs(c), 1e-12)
+                 for e, c in zip(errs[:3], FIT_CPU["first3"]))
+    if not (first3 and errs[-1] <= FIT_CPU["last"] and row["completion"] <= FIT_CPU["completion"]
+            and row["launches_checks"]["evaluate"] >= 1):
+        raise AssertionError(f"phase 10 10b: errors {errs}, completion {row['completion']:.6e}, "
+                             f"CPU {FIT_CPU}, launches {row['launches_checks']}")
+    pm = packed.pack_ragged(fitted["net"])
+    return row, _h1_h2_at(zp, ev, pm, pm, torch.from_numpy(hold).to(pm.first.device))
+
+
+def _np_rand_tt(tnt, inds, ranks, dev):
+    """The JAX package's rand_tt draws (np.random.randn: the first core,
+    the middle ones, the last) as a port train on ``dev``, f64."""
+    t = tnt.TensorNetwork.rand_tt(inds, ranks, device=dev)
+    for k in range(len(inds)):
+        t.node_tensor(k).update_val_size(
+            torch.from_numpy(np.random.randn(*t.value(k).shape)).to(dev))
+    return t
+
+
+def _fit_grad_leg(tnt, zp, ev, dev):
+    """10c: ``fit_network`` at tests/test_fit.py::test_fit_completes_low_rank_tt's
+    data (np.random.seed(11), the JAX rand_tt's draws) and bars, the
+    completion error through H2; then FIT_TIMING's 50 full-batch steps:
+    ms a step, busy share, syncs a step."""
+    from tensor_networks_tpu_torch.fit import completion_error, fit_network
+
+    np.random.seed(11)
+    inds = [tnt.Index(f"x{i}", 6) for i in range(5)]
+    truth = _np_rand_tt(tnt, inds, [2, 3, 3, 2], dev)
+
+    def observations(n):
+        idx = np.stack([np.random.randint(0, i.size, size=n) for i in inds], axis=-1)
+        return idx, truth.evaluate(inds, idx)
+
+    idx, y = observations(4000)
+    model = _np_rand_tt(tnt, inds, [2, 3, 3, 2], dev)
+    for k in range(5):
+        model.node_tensor(k).update_val_size(model.value(k) / math.sqrt(3))
+    hold_idx, hold_y = observations(1000)
+    _reset_counts(zp, ev)
+    t0 = time.perf_counter()
+    losses = fit_network(model, inds, idx, y, steps=600, lr=5e-2)
+    torch.cuda.synchronize()
+    row = {"wall_s": time.perf_counter() - t0, "loss_first": losses[0], "loss_last": losses[-1],
+           "completion": completion_error(model, inds, hold_idx, hold_y)}
+    row["launches"] = _counts(zp, ev)
+    if not (losses[-1] < FIT_GRAD_BARS["loss_drop"] * losses[0]
+            and row["completion"] < FIT_GRAD_BARS["completion"]
+            and row["launches"]["evaluate"] >= 1):
+        raise AssertionError(f"phase 10 10c: losses {losses[0]:.3e} -> {losses[-1]:.3e}, "
+                             f"completion {row['completion']:.3e}, launches {row['launches']}")
+
+    d, n, r, batch, steps = FIT_TIMING
+    rng = np.random.default_rng(SEED + 70)
+    inds_t = [tnt.Index(f"f{k}", n) for k in range(d)]
+    net = tnt.TensorNetwork.rand_tt(inds_t, [r] * (d - 1), device=dev)
+    for k in range(d):
+        v = rng.standard_normal(tuple(net.value(k).shape)) / (math.sqrt(r) if k else 1.0)
+        net.node_tensor(k).update_val_size(torch.from_numpy(v).to(dev))
+    pts = rng.integers(0, n, (batch, d))
+    vals = rng.standard_normal(batch)
+
+    def timed():
+        return fit_network(copy.deepcopy(net), inds_t, pts, vals, steps=steps, lr=1e-3)
+
+    timed()
+    _, trow = _solver_run(timed, zp, ev)
+    trow.update(steps=steps, ms_per_step=trow["event_ms"] / steps,
+                syncs_per_step={k: v / steps for k, v in trow["syncs"].items()})
+    return row, trow
+
+
+SERVE_WITHOUT_THE_PORT = """
+import io, json, sys
+import numpy as np
+import torch
+data = np.load(sys.argv[1])
+meta = json.loads(data["manifest"].tobytes().decode())
+program = torch.export.load(io.BytesIO(data["artifact"].tobytes())).module()
+values = [torch.as_tensor(data[f"value_{i}"], device=sys.argv[4]) for i in range(meta["n_values"])]
+pts = torch.as_tensor(np.load(sys.argv[2]), device=sys.argv[4])
+out = program(pts, values).cpu().numpy()
+loaded = sorted(m for m in sys.modules if m.startswith("tensor_networks_tpu"))
+assert not loaded, loaded
+np.save(sys.argv[3], out)
+"""
+
+
+def _export_leg(tnt, zp, ev, a, b, inds):
+    """10d: export the main path's train (f32, values as arguments), serve
+    EXPORT_BATCHES on the card against ``TensorNetwork.evaluate`` (H2),
+    save and serve from a process that imports only torch and numpy, swap
+    in ``b``'s values; ms a request at each size, and at 8192 the bare
+    program against H2 (CUDA events)."""
+    from tensor_networks_tpu_torch import packed
+    from tensor_networks_tpu_torch.export import export_evaluator
+
+    _reset_counts(zp, ev)
+    ex = export_evaluator(a, inds)
+    row = {"export_s": ex.export_seconds, "err": {}, "request_ms": {}}
+    rng = np.random.default_rng(SEED + 80)
+    for bsz in EXPORT_BATCHES:
+        pts = rng.integers(0, N, (bsz, D))
+        got, ref = ex(pts), a.evaluate(inds, pts)
+        row["err"][bsz] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if got.shape != (bsz,) or not row["err"][bsz] <= EXPORT_BAR:
+            raise AssertionError(f"phase 10 10d batch {bsz}: err {row['err'][bsz]:.3e}")
+        # ms a request after the first call at this size (just above)
+        row["request_ms"][bsz] = _host_ms(lambda: ex(pts), 5)[0]
+        if bsz == B:
+            row["h2_request_ms"] = _host_ms(lambda: a.evaluate(inds, pts), 5)[0]
+            cols = torch.from_numpy(pts).to(a.value(0).device)
+            pa = packed.pack(a)
+            row["program_ms"] = _time_ms(lambda: ex._module(cols, ex._values), reps=10)
+            row["h2_ms"] = _time_ms(lambda: packed.evaluate(pa, cols), reps=10)
+            pts_b = pts
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ex.save(os.path.join(tmp, "train.npz"))
+        row["artifact_mb"] = os.path.getsize(path) / 2**20
+        np.save(os.path.join(tmp, "pts.npy"), pts_b)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", SERVE_WITHOUT_THE_PORT, path,
+                        os.path.join(tmp, "pts.npy"), os.path.join(tmp, "out.npy"),
+                        str(a.value(0).device)],
+                       check=True, cwd=tmp, timeout=300)
+        row["subprocess_s"] = time.perf_counter() - t0
+        served = np.load(os.path.join(tmp, "out.npy"))
+    ref = a.evaluate(inds, pts_b)
+    row["err_subprocess"] = float(np.abs(served - ref).max() / np.abs(ref).max())
+    ex.update_values(b)
+    ref_b = b.evaluate(inds, pts_b)
+    row["err_swapped"] = float(np.abs(ex(pts_b) - ref_b).max() / np.abs(ref_b).max())
+    row["launches_checks"] = _counts(zp, ev)
+    if not (row["err_subprocess"] <= EXPORT_BAR and row["err_swapped"] <= EXPORT_BAR):
+        raise AssertionError(f"phase 10 10d: subprocess err {row['err_subprocess']:.3e}, "
+                             f"swapped err {row['err_swapped']:.3e}")
+    return row
+
+
+def _profiling_leg(tnt, a):
+    """10e: one 10a call (batched, f32) under ``profiling.trace`` with an
+    ``annotate`` region: the trace file holds the region and a kernel."""
+    from tensor_networks_tpu_torch import profiling
+    from tensor_networks_tpu_torch.ops.tight import tt_round_tight
+
+    x = a + a
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as path:
+            with profiling.annotate("phase10_tt_round_tight"):
+                tt_round_tight(x, TIGHT_EPS[torch.float32])
+            torch.cuda.synchronize()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path) / 2**20
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    region = sum(e.get("name") == "phase10_tt_round_tight" for e in events)
+    if not (kernels and region):
+        raise AssertionError(f"phase 10 10e: {kernels} kernels, region {region} times")
+    return {"trace_mb": size, "kernels": kernels, "region_events": region}
+
+
+def phase_slice12(zp, ev, a, pb, inds, idx_np):
+    """Phase 10 (10a-10e), TF32 off, each leg to its bars; one ``slice12``
+    JSON line.  ``pb`` is phase 3's second train, its end cores scaled as
+    phase 2 scales ``a``'s: 10d's swapped-in values."""
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import packed
+
+    end = (1e24 / (N * N * R)) ** 0.25
+    b = a.__deepcopy__({})
+    for k, core in enumerate([pb.first * end, *pb.mids, pb.last * end]):
+        b.node_tensor(k).update_val_size(core)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 10 runs with TF32 off")
+    print("phase 10 tight rounding, fitting, the serving export, profiling on the card:")
+    t0 = time.perf_counter()
+    cpu = [c.double().cpu() for c in stack(packed.pack(a))]
+    ref_cpu = ev.tt_evaluate_plain(*cpu, torch.from_numpy(idx_np)).numpy()
+    kernels_at, launches = {}, {}
+    tight, kernels_at["10a"] = _tight_leg(tnt, zp, ev, a, inds, idx_np, ref_cpu)
+    for key, r in tight.items():
+        if key == "fixed_f32":
+            continue
+        errs = (f", max err {r['err']:.3e} of max|2a| (H2 f64), error norm "
+                f"{r['err_norm']:.3e}" if "err" in r else "")
+        print(f"  10a {key}: ranks exact{errs}; wall {r['wall_s']:.3f} s, busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.0f}%) "
+              f"over {r['kernels']} kernels, host syncs {r['syncs']}; top "
+              f"{[(n, round(ms, 2), c) for n, ms, c in r['top']]}")
+    print(f"  10a yardstick: tt_round_fixed (svd) f32 at eps {TIGHT_EPS[torch.float32]:g}: "
+          f"max err {tight['fixed_f32']['err']:.3e} of max|2a|")
+    dev = a.value(0).device
+    als, kernels_at["10b"] = _fit_als_leg(tnt, zp, ev, dev)
+    print(f"  10b fit_network_als d=10 n=32 rank 4, 2^20 points, f64: errors "
+          f"{[float(f'{e:.6e}') for e in als['errs']]}, completion {als['completion']:.6e} "
+          f"(H2); wall {als['wall_s']:.3f} s, {als['ms_per_sweep']:.2f} ms a sweep (CUDA "
+          f"events), busy {100 * als['busy_share']:.0f}% over {als['kernels']} kernels, syncs "
+          f"{als['syncs']}; top {[(n, round(ms, 2), c) for n, ms, c in als['top']]}")
+    grad, gtime = _fit_grad_leg(tnt, zp, ev, dev)
+    print(f"  10c fit_network (test_fit's d=5 TT, 600 Adam steps, f64): loss "
+          f"{grad['loss_first']:.3e} -> {grad['loss_last']:.3e}, completion "
+          f"{grad['completion']:.4e} (H2), wall {grad['wall_s']:.2f} s; timing d=10 n=32 "
+          f"rank 8 batch 65536: {gtime['ms_per_step']:.3f} ms a step, busy "
+          f"{100 * gtime['busy_share']:.0f}% over {gtime['kernels']} kernels, syncs a step "
+          f"{gtime['syncs_per_step']}; top {[(n, round(ms, 2), c) for n, ms, c in gtime['top']]}")
+    export = _export_leg(tnt, zp, ev, a, b, inds)
+    print(f"  10d export d={D} r={R} f32: plan {export['export_s']['plan']:.3f} s, trace "
+          f"{export['export_s']['trace']:.3f} s, artifact {export['artifact_mb']:.1f} MB; "
+          f"errors {export['err']}, subprocess {export['err_subprocess']:.2e} "
+          f"({export['subprocess_s']:.1f} s), swapped {export['err_swapped']:.2e}; ms a "
+          f"request {export['request_ms']}; at {B}: request {export['request_ms'][B]:.3f} "
+          f"against evaluate (H2) {export['h2_request_ms']:.3f}, program "
+          f"{export['program_ms']:.4f} against H2 {export['h2_ms']:.4f} (CUDA events)")
+    prof = _profiling_leg(tnt, a)
+    print(f"  10e profiling.trace: {prof}")
+    for k, r in kernels_at.items():
+        h1, h2 = r["h1"], r["h2"]
+        print(f"  {k}: H1 kernel {h1['ms']:.4f} ms, plain {h1['plain_ms']:.4f}, bound "
+              f"{h1['bound_ms']:.6f} by {h1['bound_by']}; H2 kernel {h2['ms']:.4f} ms, plain "
+              f"{h2['plain_ms']:.4f}, bound {h2['bound_ms']:.6f} by {h2['bound_by']}")
+    wall = time.perf_counter() - t0
+    print(f"  phase 10 wall {wall:.1f} s")
+    keep = ("wall_s", "busy_share", "kernels", "syncs", "err", "err_norm")
+    line = {k: {f: _sig(v) for f, v in r.items() if f in keep} for k, r in tight.items()}
+    line["10b"] = {"errs_last": _sig(als["errs"][-1]), "sweeps": als["sweeps"],
+                   "ms_per_sweep": _sig(als["ms_per_sweep"]), "completion": _sig(als["completion"]),
+                   "busy_share": _sig(als["busy_share"]), "syncs": als["syncs"]}
+    line["10c"] = {"loss_ratio": _sig(grad["loss_last"] / grad["loss_first"]),
+                   "completion": _sig(grad["completion"]),
+                   "ms_per_step": _sig(gtime["ms_per_step"]),
+                   "busy_share": _sig(gtime["busy_share"]), "syncs": gtime["syncs"]}
+    line["10d"] = {"plan_s": _sig(export["export_s"]["plan"]),
+                   "trace_s": _sig(export["export_s"]["trace"]),
+                   "request_ms": _sig(export["request_ms"]), "program_ms": _sig(export["program_ms"]),
+                   "h2_ms": _sig(export["h2_ms"]), "err": _sig(max(export["err"].values()))}
+    line["10e"] = _sig(prof)
+    line["wall_s"] = _sig(wall)
+    print(json.dumps({"slice12": line}, separators=(",", ":")))
+    kinds = ("zipper", "chain", "evaluate", "tiles")
+    launches = {"tight": {dt: {kind: sum(r["launches_checks"][kind] for k, r in tight.items()
+                                         if k.startswith(f"float{dt[1:]}_"))
+                               for kind in kinds} for dt in ("f32", "f64")},
+                "fit": {"10b": als["launches_checks"], "10c": grad["launches"]},
+                "export": {"10d": export["launches_checks"]}}
+    return kernels_at, launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -2971,26 +3358,33 @@ def _sig(x):
         return float(f"{x:.4g}")
     if isinstance(x, dict):
         return {k: _sig(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_sig(v) for v in x]
     return x
+
+
+#: the columns of a timing group's rows on the kernels line
+GROUP_COLS = ("ms", "plain_ms", "bound_ms", "max_abs_err")
 
 
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
     library_ms is null.  Rows for other dtypes and shapes (phases 3 and
-    5) and evaluate_ensemble's one call (phase 5) keep their times,
-    bound and error."""
+    5-9) keep their times, bound and error, each row a list under the
+    entry's ``group_cols`` (the line stays under 5 KB); evaluate_ensemble's
+    one call (phase 5) keeps its own keys."""
     out = {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
-    for group, keep in (("by_dtype", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("large", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("ensemble", ("ms", "plain_ms", "separate_ms", "bound_ms")),
-                        ("gmres", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("solvers", ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                        ("evolve", ("ms", "plain_ms", "bound_ms", "max_abs_err"))):
-        if group in t:
-            out[group] = {k: {f: v[f] for f in keep} for k, v in t[group].items()}
+    groups = [g for g in ("by_dtype", "large", "gmres", "solvers", "evolve") if g in t]
+    if groups:
+        out["group_cols"] = list(GROUP_COLS)
+    for group in groups:
+        out[group] = {k: [v[f] for f in GROUP_COLS] for k, v in t[group].items()}
+    if "ensemble" in t:
+        out["ensemble"] = {k: {f: v[f] for f in ("ms", "plain_ms", "separate_ms", "bound_ms")}
+                           for k, v in t["ensemble"].items()}
     return out
 
 
@@ -3054,6 +3448,7 @@ def main() -> int:
     _, evolve_kernels, evolve_launches = phase_evolve(zp, ev, dev)
     for name, key in (("inner", "h1"), ("evaluate", "h2")):
         times[name]["evolve"] = {k: r[key] for k, r in evolve_kernels.items()}
+    _, slice_launches = phase_slice12(zp, ev, main_train[0], pb, *main_train[1:3])
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",
@@ -3064,7 +3459,9 @@ def main() -> int:
          "launches_rounding": round_launches["zipper"],
          "launches_gmres": {k: v["zipper"] for k, v in gmres_launches.items()},
          "launches_solvers": {k: v["zipper"] for k, v in solver_launches.items()},
-         "launches_evolve": {k: v["zipper"] for k, v in evolve_launches.items()}},
+         "launches_evolve": {k: v["zipper"] for k, v in evolve_launches.items()},
+         **{f"launches_{part}": {k: v["zipper"] for k, v in legs.items()}
+            for part, legs in slice_launches.items()}},
         {"name": "tt_inner_chain_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/zipper.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:502 tt_inner_pallas, "
@@ -3073,7 +3470,9 @@ def main() -> int:
          "launches_rounding": round_launches["chain"],
          "launches_gmres": {k: v["chain"] for k, v in gmres_launches.items()},
          "launches_solvers": {k: v["chain"] for k, v in solver_launches.items()},
-         "launches_evolve": {k: v["chain"] for k, v in evolve_launches.items()}},
+         "launches_evolve": {k: v["chain"] for k, v in evolve_launches.items()},
+         **{f"launches_{part}": {k: v["chain"] for k, v in legs.items()}
+            for part, legs in slice_launches.items()}},
         {"name": "tt_evaluate_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/pallas_ops.py:424 tt_evaluate_pallas, "
@@ -3083,7 +3482,9 @@ def main() -> int:
          "launches_rounding": round_launches["evaluate"],
          "launches_gmres": {k: v["evaluate"] for k, v in gmres_launches.items()},
          "launches_solvers": {k: v["evaluate"] for k, v in solver_launches.items()},
-         "launches_evolve": {k: v["evaluate"] for k, v in evolve_launches.items()}},
+         "launches_evolve": {k: v["evaluate"] for k, v in evolve_launches.items()},
+         **{f"launches_{part}": {k: v["evaluate"] for k, v in legs.items()}
+            for part, legs in slice_launches.items()}},
         {"name": "group_tiles_cuda", "route": "cuda",
          "source": "tensor_networks_tpu_torch/kernels/csrc/evaluate.cu",
          "replaces": "tensor_networks_tpu/kernels/ragged_eval.py:65 (group counts, XLA)",
@@ -3092,7 +3493,9 @@ def main() -> int:
          "launches_rounding": round_launches["tiles"],
          "launches_gmres": {k: v["tiles"] for k, v in gmres_launches.items()},
          "launches_solvers": {k: v["tiles"] for k, v in solver_launches.items()},
-         "launches_evolve": {k: v["tiles"] for k, v in evolve_launches.items()}},
+         "launches_evolve": {k: v["tiles"] for k, v in evolve_launches.items()},
+         **{f"launches_{part}": {k: v["tiles"] for k, v in legs.items()}
+            for part, legs in slice_launches.items()}},
     ]
     for k in kernels:  # zero launch counts are left out: the line stays under 5 KB
         for f, v in k.items():

@@ -1,10 +1,11 @@
-"""The CPU readings behind the bars of ``chip_smoke.py``'s phases 8 and 9.
+"""The CPU readings behind the bars of ``chip_smoke.py``'s phases 8, 9 and 10b.
 
-    python3 solver_witness.py port [solvers|evolve]   # the PyTorch port, on the CPU
-    python3 solver_witness.py jax [solvers|evolve]    # the JAX package, on the CPU
+    python3 solver_witness.py port [solvers|evolve|fit]   # the PyTorch port, on the CPU
+    python3 solver_witness.py jax [solvers|evolve]        # the JAX package, on the CPU
 
 Each mode imports only its own package and prints phase 8's readings
-(``solvers``), phase 9's (``evolve``) or both, one line each.  Phase 8:
+(``solvers``), phase 9's (``evolve``) or both, one line each; ``port
+fit`` prints phase 10b's (the port only, ~3 min).  Phase 8:
 
 - 8c (K=14, rank 64, f32, x0 = pad_rank(qtt_exponential(14, c=3), 64),
   48 Lanczos steps a local, every sweep run): the start's Rayleigh
@@ -38,6 +39,11 @@ two forms, as ``bench.py`` calls it for 9a):
 - 9e (``tests/test_evolve.py:272``'s shape, K=6, r=2, f64):
   ``tdvp_trajectory``'s gradients of the final energy against central
   differences.
+
+Phase 10b: ``fit_network_als`` on :func:`completion_problem` (20
+sweeps, tol 1e-10, f64): the error of every sweep and the completion
+error on the held-out points; then the same on an exact rank-4 random
+target, which stalls likewise.
 
 The port takes minutes, the JAX package's host loop about a quarter of
 an hour (its 8c locals are compiled calls of one core each).
@@ -331,12 +337,74 @@ def _evolve_jax():
     _evolve_readings(run, lambda u: [np.asarray(t, dtype=np.float64) for t in u])
 
 
+# -- phase 10 --------------------------------------------------------------------
+
+
+#: phase 10b: d, n, model rank, observed and held-out points, sweeps, tol
+FIT_D, FIT_N, FIT_RANK, FIT_OBS, FIT_HOLD, FIT_SWEEPS, FIT_TOL = (
+    10, 32, 4, 2**20, 2**16, 20, 1e-10)
+
+
+def completion_problem(tnt, device, exact_rank=False, seed=1234):
+    """Phase 10b's completion problem on ``device``, all from NumPy seeds
+    in float64: ``tests/test_fit.py::test_als_completes_sparse_smooth_train``'s
+    additive target sum_i sin((i + 1) x_i) on a grid of 32 in [-1, 1] at
+    d=10 (``exact_rank``: a random rank-4 train instead, cores after the
+    first scaled by 1/2 so entries are O(1)); a rank-4 model from a
+    second generator, scaled alike; 2^20 observed and 2^16 held-out
+    points with the target's values.  Returns ``(indices, model, idx, y,
+    hold, y_hold)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    inds = [tnt.Index(f"c{k}", FIT_N) for k in range(FIT_D)]
+
+    def random_train(gen):
+        t = tnt.TensorNetwork.rand_tt(inds, [FIT_RANK] * (FIT_D - 1), device=device)
+        for k in range(FIT_D):
+            v = gen.standard_normal(tuple(t.value(k).shape)) / (np.sqrt(FIT_RANK) if k else 1.0)
+            t.node_tensor(k).update_val_size(torch.from_numpy(v).to(device))
+        return t
+
+    if exact_rank:
+        target = random_train(rng)
+    else:
+        grid = np.linspace(-1.0, 1.0, FIT_N)
+        target = tnt.tt_separable(inds, [np.sin((i + 1) * grid) for i in range(FIT_D)],
+                                  device=device)
+    model = random_train(np.random.default_rng(seed + 1))
+    idx = rng.integers(0, FIT_N, (FIT_OBS, FIT_D))
+    hold = rng.integers(0, FIT_N, (FIT_HOLD, FIT_D))
+    return inds, model, idx, target.evaluate(inds, idx), hold, target.evaluate(inds, hold)
+
+
+def _fit_port():
+    import torch
+
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch.fit import completion_error, fit_network_als
+
+    torch.set_num_threads(4)
+    for exact_rank in (False, True):
+        inds, model, idx, y, hold, y_hold = completion_problem(tnt, "cpu", exact_rank)
+        t0 = time.perf_counter()
+        errs = fit_network_als(model, inds, idx, y, sweeps=FIT_SWEEPS, tol=FIT_TOL)
+        print(f"10b {'exact rank-4' if exact_rank else 'additive'} target: errors by sweep "
+              f"{[float(f'{e:.10e}') for e in errs]}; completion error "
+              f"{completion_error(model, inds, hold, y_hold):.10e} "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] not in (["port"], ["jax"]) or sys.argv[2:] not in ([], ["solvers"],
-                                                                           ["evolve"]):
+    if sys.argv[1:2] not in (["port"], ["jax"]) or sys.argv[2:] not in (
+            [], ["solvers"], ["evolve"], ["fit"]) or sys.argv[1:] == ["jax", "fit"]:
         sys.exit(__doc__)
     port = sys.argv[1] == "port"
-    if sys.argv[2:] != ["evolve"]:
-        (_port if port else _jax)()
-    if sys.argv[2:] != ["solvers"]:
-        (_evolve_port if port else _evolve_jax)()
+    if sys.argv[2:] == ["fit"]:
+        _fit_port()
+    else:
+        if sys.argv[2:] != ["evolve"]:
+            (_port if port else _jax)()
+        if sys.argv[2:] != ["solvers"]:
+            (_evolve_port if port else _evolve_jax)()

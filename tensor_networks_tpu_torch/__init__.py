@@ -8,9 +8,11 @@ TT-GMRES (graph and packed), uniform-train fast paths (zipper inner
 product, fixed-rank rounding sweep), the packed device TT algebra, the
 QTT constructors, the ALS linear solver and DMRG eigensolver
 (:mod:`tensor_networks_tpu_torch.ops.als`, :mod:`~.ops.eigen`), the time
-integrators (:mod:`~.ops.evolve`) and cross
-approximation
-(:mod:`tensor_networks_tpu_torch.cross`), with the JAX package's Pallas
+integrators (:mod:`~.ops.evolve`), tight-budget rounding in float64
+(:mod:`~.ops.tight`), cross approximation
+(:mod:`tensor_networks_tpu_torch.cross`), tensor completion
+(:mod:`~.fit`), the serving export through ``torch.export``
+(:mod:`~.export`) and profiling hooks (:mod:`~.profiling`), with the JAX package's Pallas
 kernels replaced by hand-written CUDA kernels for Hopper
 (:mod:`tensor_networks_tpu_torch.kernels`).
 
@@ -94,6 +96,8 @@ from tensor_networks_tpu_torch.ops import (
     tt_round_fixed,
 )
 from tensor_networks_tpu_torch import cross
+from tensor_networks_tpu_torch import fit
+from tensor_networks_tpu_torch import export
 
 __version__ = "0.1.0"
 
@@ -171,4 +175,6 @@ __all__ = [
     "stack_tt_cores",
     "tt_round_fixed",
     "cross",
+    "fit",
+    "export",
 ]

@@ -19,6 +19,7 @@ clones networks does no array copies.
 from __future__ import annotations
 
 import copy
+import functools
 from collections import Counter
 from dataclasses import dataclass
 from typing import (
@@ -38,7 +39,11 @@ import torch
 
 from tensor_networks_tpu_torch.dimtree import DimTreeNode, NodeInfo
 from tensor_networks_tpu_torch.graph import Graph
-from tensor_networks_tpu_torch.planner import contract_values
+from tensor_networks_tpu_torch.planner import (
+    contract_values,
+    get_contraction,
+    intern_ids,
+)
 from tensor_networks_tpu_torch.tensor import Tensor
 from tensor_networks_tpu_torch.types import (
     Index,
@@ -851,9 +856,15 @@ class TensorNetwork:
 
         Returns ``(fn, values)`` where ``fn(values, cols) -> (B,)``
         evaluates the network whose node values are ``values`` (listed in
-        node order) at the ``(batch_size, len(indices))`` integer
-        multi-index array ``cols``.  ``fn`` is differentiable in
-        ``values``.  Out-of-range columns clamp to each index's range.
+        node order) at the ``(B, len(indices))`` integer multi-index
+        array ``cols``.  ``fn`` is differentiable in ``values``.
+        Out-of-range columns clamp to each index's range.
+
+        The contraction plan is built here, from ``batch_size``; ``fn``
+        runs its steps and reads no shape, so it serves any ``B`` and
+        traces with a symbolic one (:mod:`tensor_networks_tpu_torch.export`).
+        Each node's gather is made at its first use in the plan, so at
+        most the plan's live intermediates are held at once.
         """
         batch_ind = Index("_batch", batch_size)
         operand_indices: List[List[Index]] = []
@@ -888,18 +899,29 @@ class TensorNetwork:
                 operand_indices.append(list(tensor.indices))
             values.append(tensor.value)
 
+        ids = intern_ids(operand_indices + [[batch_ind]])
+        shapes = [tuple(ix.size for ix in inds) for inds in operand_indices]
+        plan = get_contraction(
+            ids[:-1], ids[-1], shapes, functools.reduce(
+                torch.promote_types, [v.dtype for v in values])
+        )
+
         def run(vals, cols):
-            operands = []
-            for v, (perm, gcols, sizes) in zip(vals, plans):
+            # torch.einsum does not promote mixed dtypes; JAX's einsum does
+            dtype = functools.reduce(torch.promote_types, [v.dtype for v in vals])
+
+            def operand(k):
+                v, (perm, gcols, sizes) = vals[k], plans[k]
+                if v.dtype != dtype:
+                    v = v.to(dtype)
                 if perm is None:
-                    operands.append(v)
-                else:
-                    idx = tuple(
-                        cols[:, c].clamp(0, s - 1)
-                        for c, s in zip(gcols, sizes)
-                    )
-                    operands.append(v.permute(perm)[idx])
-            return contract_values(operand_indices, operands, [batch_ind])
+                    return v
+                idx = tuple(
+                    cols[:, c].clamp(0, s - 1) for c, s in zip(gcols, sizes)
+                )
+                return v.permute(perm)[idx]
+
+            return plan.contract_lazy(operand, len(vals))
 
         return run, values
 

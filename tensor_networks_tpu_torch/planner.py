@@ -43,8 +43,13 @@ def _greedy_path(
     Each step contracts the pair that minimizes ``size(result) -
     size(a) - size(b)``, preferring pairs that share an index; an index
     survives while the output or another remaining operand still holds
-    it.  Positions follow the opt_einsum convention: the two operands
-    are removed and their result is appended at the end.
+    it.  Among pairs of equal cost the one with the smaller result
+    wins: on a chain of gathered cores, (B, r) x (B, r, r) and
+    (B, r, r) x (B, r, r) free the same memory, and only the first is
+    the zipper order (B r^2 operations a step, not B r^3, and no
+    (B, r, r) intermediates held at once).  Positions follow the
+    opt_einsum convention: the two operands are removed and their
+    result is appended at the end.
     """
     ops = [frozenset(ids) for ids in operand_ids]
     out = frozenset(out_ids)
@@ -89,9 +94,9 @@ def _greedy_path(
         for i, j in pairs:
             kept = kept_of(ops[i], ops[j])
             cost = size(kept) - size(ops[i]) - size(ops[j])
-            if best is None or (cost, i, j) < best[0]:
-                best = ((cost, i, j), kept)
-        (_, i, j), kept = best
+            if best is None or (cost, size(kept), i, j) < best[0]:
+                best = ((cost, size(kept), i, j), kept)
+        (_, _, i, j), kept = best
         for x in ops[i] | ops[j]:
             count[x] -= (x in ops[i]) + (x in ops[j])
         for x in kept:
@@ -172,11 +177,23 @@ class CompiledContraction:
         return optimal_path(operand_ids, out_ids, dims)
 
     def __call__(self, *arrays: torch.Tensor) -> torch.Tensor:
-        ops = list(arrays)
+        return self.contract_lazy(arrays.__getitem__, len(arrays))
+
+    def contract_lazy(self, operand, n_operands: int) -> torch.Tensor:
+        """Run the frozen path on operands made at their first use:
+        ``operand(k)`` returns operand ``k``.  Only the path's live
+        intermediates and the two operands of a step are held at once,
+        so a batched evaluator gathers one core at a time.  Nothing
+        here reads a shape, so a traced batch size stays symbolic."""
+        ops = list(range(n_operands))  # an int: operand not made yet
         for i, j, ids_i, ids_j, kept in self._steps:
-            res = _pair_einsum(ops[i], ids_i, ops[j], ids_j, kept)
+            a, b = (operand(o) if isinstance(o, int) else o
+                    for o in (ops[i], ops[j]))
+            res = _pair_einsum(a, ids_i, b, ids_j, kept)
             ops = [o for k, o in enumerate(ops) if k not in (i, j)]
             ops.append(res)
+        if isinstance(ops[0], int):
+            ops[0] = operand(ops[0])
         # last operand: sum what the output drops, order as the output
         local = {x: k for k, x in enumerate(self._final_ids)}
         return torch.einsum(

@@ -767,3 +767,88 @@ def test_fused_tdvp_on_the_card_matches_host_loop_and_cpu(dev):
         np.testing.assert_allclose(nf, nh, rtol=1e-12)
         np.testing.assert_allclose(nf, nc, rtol=1e-10)
         assert rf == rh
+
+
+def _graded_train(d, where, dtype=torch.float32, scales=(1.0, 1e-2, 1e-4, 1e-6)):
+    """``tests/test_tight_eps.py``'s graded train (sums of unit rank-1
+    trains at the given scales) built by the port from its draws."""
+    from tensor_networks_tpu_torch import tt_rank1, tt_sum
+
+    rng = np.random.default_rng(7)
+    ins = [Index(f"x{i}", 6) for i in range(d)]
+    terms = []
+    for sc in scales:
+        vecs = [rng.standard_normal(6) for _ in ins]
+        terms.append(tt_rank1(ins, [sc * v / np.linalg.norm(v) for v in vecs],
+                              dtype=dtype, device=where))
+    return tt_sum(terms)
+
+
+def test_tight_rounding_on_the_card_matches_the_cpu(dev):
+    """``tt_round_tight`` on the card, both sweeps: the CPU's ranks and an
+    error within 2 eps (the QR-sweep norm of the f64 difference); the
+    batched sweep's host syncs are the same at d=6 and d=10."""
+    from tensor_networks_tpu_torch.ops.tight import tt_round_tight
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    def rel(out, ref):
+        got = tpk.pack_ragged(out, torch.float64)
+        want = tpk.pack_ragged(ref, torch.float64)
+        return float(tpk.norm_exact(tpk.add(got, tpk.scale(want, -1.0))) / tpk.norm_exact(want))
+
+    s, s_cpu = _graded_train(10, dev), _graded_train(10, "cpu")
+    for sweep in ("batched", "sequential"):
+        for eps in (1e-5, 3e-7):
+            out, ranks = tt_round_tight(s.__deepcopy__({}), eps, sweep=sweep)
+            _, ranks_cpu = tt_round_tight(s_cpu.__deepcopy__({}), eps, sweep=sweep)
+            assert ranks == ranks_cpu, (sweep, eps, ranks, ranks_cpu)
+            assert out.value(0).device == s.value(0).device
+            assert out.value(0).dtype == torch.float32
+            assert rel(out, s) <= 2 * eps, (sweep, eps)
+    counts = []
+    for d in (6, 10):
+        t = _graded_train(d, dev)
+        tt_round_tight(t.__deepcopy__({}), 1e-5)  # warm: cuSOLVER handles
+        counts.append(host_syncs(lambda: tt_round_tight(t.__deepcopy__({}), 1e-5))[0])
+    assert counts[0] == counts[1], counts
+
+
+def test_exported_artifact_serves_across_devices(dev, tmp_path):
+    """An artifact traced on the CPU serves on the card and one traced
+    on the card serves on the CPU, with the same values (1e-12, f64)."""
+    from tensor_networks_tpu_torch.export import export_evaluator, load
+
+    inds = [Index(f"x{i}", 7) for i in range(6)]
+    g = torch.Generator().manual_seed(23)
+    net = TensorNetwork.rand_tt(inds, [3, 4, 5, 4, 3], device="cpu", generator=g)
+    net_card = net.__deepcopy__({})
+    for n in net_card.network.nodes:
+        net_card.node_tensor(n).update_val_size(net.value(n).to(dev))
+    pts = np.random.default_rng(0).integers(0, 7, (257, 6))
+    ref = net.evaluate(inds, pts)
+    for source, target in ((net, dev), (net_card, "cpu")):
+        path = export_evaluator(source, inds).save(str(tmp_path / f"from_{source.value(0).device.type}"))
+        got = load(path, device=target)(pts)
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_als_completion_on_the_card_matches_the_cpu(dev):
+    """``fit_network_als`` at d=6, n=8, rank 3, f64: the card's first two
+    sweep errors equal the CPU's within 1e-6 relative or 1e-12 absolute."""
+    from tensor_networks_tpu_torch.fit import fit_network_als
+
+    rng = np.random.default_rng(5)
+    inds = [Index(f"a{i}", 8) for i in range(6)]
+    truth = TensorNetwork.rand_tt(inds, [3] * 5, device="cpu",
+                                  generator=torch.Generator().manual_seed(1))
+    idx = rng.integers(0, 8, (20000, 6))
+    y = truth.evaluate(inds, idx)
+    errs = {}
+    for where in ("cpu", dev):
+        model = TensorNetwork.rand_tt(inds, [3] * 5, device="cpu",
+                                      generator=torch.Generator().manual_seed(2))
+        for n in model.network.nodes:
+            model.node_tensor(n).update_val_size(model.value(n).to(where))
+        errs[str(where)] = fit_network_als(model, inds, idx, y, sweeps=2)
+    for a, b in zip(errs[str(dev)], errs["cpu"]):
+        assert abs(a - b) <= max(1e-6 * abs(b), 1e-12), errs
