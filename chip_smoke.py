@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-ten phases:
+eleven phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -135,11 +135,28 @@ ten phases:
    train served at batches 1 to 65536 against H2 (1e-4 of max|ref|),
    saved and served by a process that imports only torch and numpy,
    its values swapped for a second train's; (e) one (a) call under
-   ``profiling.trace`` holding an ``annotate`` region and kernels.
+   ``profiling.trace`` holding an ``annotate`` region and kernels;
+11. structure search on the card, TF32 off, H1's and H2's launch
+   counters reset just before each leg and read just after (none
+   expected): (a) ``bench.py``'s ``_leg_bfs8``, ``run_bfs`` at eps 0.5,
+   max_ops 1 on a d=8, n=6 f32 target (the root's 127 bipartitions in
+   four exact-shape groups), batched (the default on the card) and
+   per-action (``TNT_SEARCH_DEVICE=0``): both 127 states with the same
+   best cost and no action left by the scorer to the per-action path;
+   wall, busy, kernels, host syncs by kind and peak memory of each;
+   each ``torch.linalg.svd`` driver and ``eigh`` library on the (1296,
+   1296) group; (b) ``SplitSpectra.build`` on the same target in f32
+   and f64: wall, peak memory, syncs, each group's first spectrum
+   against ``numpy.linalg.svd`` in f64 (1e-5 and 1e-12 of the top
+   value); (c) ``bench.py``'s ``_leg_search_small``: partition
+   search (8x9x10x11, eps 0.3, 63 programs) and dfs (3x4x5, eps 0.5, 8
+   states), then the partition search through the watchdog child: 63,
+   the same best cost, a child that saw no card.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
-one with phase 10's (``slice12``), one with per-kernel results,
+one with phase 10's (``slice12``), one for each leg of phase 11
+(``search_11a``, ``search_11b``, ``search_11c``), one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -3351,6 +3368,312 @@ def phase_slice12(zp, ev, a, pb, inds, idx_np):
     return kernels_at, launches
 
 
+#: 11a/11b: bench.py's _leg_bfs8 target, d=8 modes of 6 (6.7 MB in f32)
+SEARCH_D, SEARCH_N = 8, 6
+#: 11b: each group's first spectrum against host LAPACK in f64, relative
+#: to its top singular value
+SPECTRA_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _search_env(force):
+    """Set ``TNT_SEARCH_DEVICE`` (None: unset, batched scoring by the
+    state's device)."""
+    if force is None:
+        os.environ.pop("TNT_SEARCH_DEVICE", None)
+    else:
+        os.environ["TNT_SEARCH_DEVICE"] = force
+
+
+def _one_node(tnt, value, names):
+    net = tnt.TensorNetwork()
+    net.add_node("G", tnt.Tensor(value, [tnt.Index(nm, s) for nm, s in zip(names, value.shape)]))
+    return net
+
+
+def _search_run(call, zp, ev):
+    """``_solver_run`` plus the peak device memory above what was held
+    before the call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out, row = _solver_run(call, zp, ev)
+    row["peak_mb"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+    return out, row
+
+
+def _bfs8_groups(value):
+    """The d-mode target's bipartitions by exact oriented shape: {(m,
+    n): [(row axes, axis order of the oriented matricization)]}, in the
+    order ``SplitSpectra`` makes them."""
+    from tensor_networks_tpu_torch import Index
+    from tensor_networks_tpu_torch.search import SearchState, batched
+
+    names = [f"i{k}" for k in range(value.ndim)]
+    groups = {}
+    for comb in SearchState.all_index_combs([Index(nm, s) for nm, s in zip(names, value.shape)]):
+        axes = tuple(names.index(i.name) for i in comb)
+        perm, _, mn = batched._orientation(value.shape, axes)
+        groups.setdefault(mn, []).append((axes, perm))
+    return groups
+
+
+def _timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+#: 11a: the square group's factorizations are timed on its first members
+#: (cuSOLVER runs a batch one matrix at a time, but for syevj's n <= 32)
+DRIVER_MEMBERS = 8
+
+
+def _square_group_drivers(value):
+    """11a: the first members of the square group ((1296, 1296) at d=8,
+    f32) through each ``torch.linalg.svd`` driver, each ``eigh`` library
+    on their Gram in f64, and the scorer's Gram route: ms a matrix, one
+    call after a small warm-up (host clock, synchronised); the first
+    matrix's spectrum against ``numpy.linalg.svd`` in f64, relative to
+    its top value."""
+    from tensor_networks_tpu_torch.search import batched
+
+    mn = (SEARCH_N ** (SEARCH_D // 2),) * 2
+    group = _bfs8_groups(value)[mn][:DRIVER_MEMBERS]
+    stack = batched._stack_group(value, [p for _, p in group], mn)
+    rest = [k for k in range(SEARCH_D) if k not in group[0][0]]
+    ref = np.linalg.svd(np.transpose(value.double().cpu().numpy(), list(group[0][0]) + rest)
+                        .reshape(mn), compute_uv=False)
+    small = stack[:2, :64, :64].contiguous()
+    out = {}
+
+    def row(s, ms):
+        return ms / len(group), float(np.abs(s[0].double().cpu().numpy() - ref).max() / ref[0])
+
+    for driver in ("gesvd", None, "gesvdj", "gesvda"):
+        torch.linalg.svd(small, full_matrices=False, driver=driver)
+        (_, s, _), ms = _timed_ms(lambda: torch.linalg.svd(stack, full_matrices=False, driver=driver))
+        out[f"svd {driver or 'default'}"] = row(s, ms)
+    gram = (stack @ stack.mT).double()
+    for lib in ("cusolver", "magma") if torch.cuda.has_magma else ("cusolver",):
+        torch.backends.cuda.preferred_linalg_library(lib)
+        try:
+            torch.linalg.eigh(small.double() @ small.double().mT)
+            (w, _), ms = _timed_ms(lambda: torch.linalg.eigh(gram))
+        finally:
+            torch.backends.cuda.preferred_linalg_library("default")
+        out[f"eigh {lib}"] = row(w.flip(-1).clamp_min(0.0).sqrt(), ms)
+    (_, s, _), ms = _timed_ms(lambda: batched._group_factors(stack, True))
+    out["gram route"] = row(s, ms)
+    return out
+
+
+def _bfs8_leg(tnt, zp, ev, dev):
+    """11a: bench.py's _leg_bfs8: ``run_bfs`` at eps 0.5, max_ops 1 on
+    the d=8, n=6 f32 target on the card, the root's 127 bipartitions:
+    batched (the default on the card; after one untimed call), then
+    per-action (``TNT_SEARCH_DEVICE=0``, once), each with wall, busy,
+    kernels, host syncs by kind and peak memory; the square group's
+    factorization drivers."""
+    from tensor_networks_tpu_torch.search import SearchConfig, batched
+    from tensor_networks_tpu_torch.search.drivers import run_bfs
+
+    value = torch.from_numpy(np.random.default_rng(0).standard_normal([SEARCH_N] * SEARCH_D)
+                             .astype(np.float32)).to(dev)
+    names = [f"i{k}" for k in range(SEARCH_D)]
+    config = SearchConfig()
+    config.engine.eps = 0.5
+    config.engine.max_ops = 1
+    call = lambda: run_bfs(_one_node(tnt, value, names), config)  # noqa: E731
+    rows = {}
+    _search_env(None)
+    call()  # the first call at these shapes, untimed
+    batched.scored_splits.per_action = 0
+    (stats, best, _), rows["batched"] = _search_run(call, zp, ev)
+    rows["batched"]["per_action"] = batched.scored_splits.per_action
+    _search_env("0")
+    try:
+        (stats0, best0, _), rows["per_action"] = _search_run(call, zp, ev)
+    finally:
+        _search_env(None)
+    for key, st, b in (("batched", stats, best), ("per_action", stats0, best0)):
+        rows[key].update(count=st["count"], best_cost=b.cost())
+    rows["groups"] = {f"{m}x{n}": len(p) for (m, n), p in _bfs8_groups(value).items()}
+    if not (rows["batched"]["count"] == rows["per_action"]["count"] == 2 ** (SEARCH_D - 1) - 1
+            and rows["batched"]["best_cost"] == rows["per_action"]["best_cost"]
+            and rows["batched"]["per_action"] == 0 and len(rows["groups"]) == SEARCH_D // 2):
+        raise AssertionError(f"phase 11 11a: {rows}")
+    rows["drivers"] = _square_group_drivers(value)
+    return rows
+
+
+def _spectra_leg(tnt, zp, ev, dev):
+    """11b: ``SplitSpectra.build`` on the d=8 target in f32 and f64 (all
+    127 spectra): wall (synchronised), peak memory, host syncs; each
+    group's first spectrum against ``numpy.linalg.svd`` in f64."""
+    from tensor_networks_tpu_torch.search import SearchConfig, spectra
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    host = np.random.default_rng(0).standard_normal([SEARCH_N] * SEARCH_D)
+    names = [f"i{k}" for k in range(SEARCH_D)]
+    config = SearchConfig()
+    config.engine.eps = 0.5
+    real = spectra.group_svals
+    rows = {}
+    for dtype in SPECTRA_TOL:
+        data = host.astype(np.float32) if dtype == torch.float32 else host
+        value = torch.from_numpy(data).to(dev)
+        target = tnt.Tensor(value, [tnt.Index(nm, SEARCH_N) for nm in names])
+        made = []
+
+        def record(stack):
+            out = real(stack)
+            made.append((tuple(stack.shape[1:]), out))
+            return out
+
+        spectra.group_svals = record
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _reset_counts(zp, ev)
+        t0 = time.perf_counter()
+        try:
+            syncs, _ = host_syncs(lambda: spectra.SplitSpectra(config).build(target))
+        finally:
+            spectra.group_svals = real
+        torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0, "syncs": syncs,
+               "peak_mb": (torch.cuda.max_memory_allocated() - held) / 2**20,
+               "launches": _counts(zp, ev), "groups": len(made)}
+        groups = _bfs8_groups(value)
+        errs = {}
+        for mn, svals in made:
+            axes = groups[mn][0][0]
+            rest = [k for k in range(SEARCH_D) if k not in axes]
+            mat = np.transpose(data.astype(np.float64), list(axes) + rest).reshape(
+                SEARCH_N ** len(axes), -1)
+            ref = np.linalg.svd(mat, compute_uv=False)
+            errs[f"{mn[0]}x{mn[1]}"] = float(np.abs(svals[0].double().cpu().numpy() - ref).max() / ref[0])
+        row["err"] = errs
+        rows[str(dtype)[6:]] = row
+        if not (len(made) == SEARCH_D // 2 and max(errs.values()) <= SPECTRA_TOL[dtype]):
+            raise AssertionError(f"phase 11 11b {dtype}: {row}")
+    return rows
+
+
+def _search_small_leg(tnt, zp, ev, dev):
+    """11c: bench.py's _leg_search_small on the card: partition search on
+    seed(1) randn(8, 9, 10, 11) at eps 0.3 (63 programs), dfs on seed(4)
+    randn(3, 4, 5) at eps 0.5 (8 states), each with wall, busy, kernels
+    and syncs; then the partition search through the watchdog child
+    (timeout 120 s, timed once): the same count and best cost, and a
+    child that saw no card."""
+    from tensor_networks_tpu_torch.search import SearchConfig, SearchEngine, synthesis
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    np.random.seed(1)
+    big = torch.from_numpy(np.random.randn(8, 9, 10, 11)).to(dev)
+    np.random.seed(4)
+    small = torch.from_numpy(np.random.randn(3, 4, 5)).to(dev)
+
+    def engine(eps, timeout=None):
+        config = SearchConfig()
+        config.engine.eps = eps
+        config.engine.timeout = timeout
+        return SearchEngine(config)
+
+    rows = {}
+    _search_env(None)
+    for key, call in (
+            ("partition", lambda: engine(0.3).partition_search(_one_node(tnt, big, "ijkl"))),
+            ("dfs", lambda: engine(0.5).dfs(_one_node(tnt, small, "ijk")))):
+        call()  # the first call at these shapes, untimed
+        stats, rows[key] = _search_run(call, zp, ev)
+        rows[key].update(count=stats["count"], best_cost=stats["best_network"].cost(),
+                         error=stats["reconstruction_error"])
+    t0 = time.perf_counter()
+    syncs, stats = host_syncs(
+        lambda: engine(0.3, 120.0).partition_search(_one_node(tnt, big, "ijkl")))
+    rows["watchdog"] = {"wall_s": time.perf_counter() - t0, "syncs": syncs,
+                        "count": stats["count"], "best_cost": stats["best_network"].cost(),
+                        "error": stats["reconstruction_error"],
+                        "child": synthesis.explore_with_watchdog.last_child}
+    bars = (rows["partition"]["count"] == rows["watchdog"]["count"] == 63,
+            rows["dfs"]["count"] == 8,
+            rows["watchdog"]["best_cost"] == rows["partition"]["best_cost"],
+            rows["watchdog"]["child"] == {"CUDA_VISIBLE_DEVICES": "", "cuda_initialized": False},
+            all(rows[k]["error"] <= eps * 1.01
+                for k, eps in (("partition", 0.3), ("dfs", 0.5), ("watchdog", 0.3))))
+    if not all(bars):
+        raise AssertionError(f"phase 11 11c: {bars} {rows}")
+    return rows
+
+
+def phase_search(zp, ev, dev):
+    """Phase 11 (11a-11c), TF32 off, each leg to its bars; one JSON line
+    a leg.  Returns H1's and H2's launches in each leg (none expected:
+    the search contracts to dense tensors)."""
+    import tensor_networks_tpu_torch as tnt
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 11 runs with TF32 off")
+    print("phase 11 structure search on the card:")
+    t0 = time.perf_counter()
+    launches = {}
+
+    def top(r):
+        return [(n, round(ms, 2), c) for n, ms, c in r["top"]]
+
+    _reset_counts(zp, ev)
+    a = _bfs8_leg(tnt, zp, ev, dev)
+    launches["11a"] = _counts(zp, ev)
+    for key in ("batched", "per_action"):
+        r = a[key]
+        print(f"  11a bfs d={SEARCH_D} n={SEARCH_N} f32 eps 0.5 {key}: {r['count']} states, best "
+              f"cost {r['best_cost']}; wall {r['wall_s']:.3f} s, busy {r['busy_ms']:.1f} ms "
+              f"({100 * r['busy_share']:.0f}%) over {r['kernels']} kernels, syncs {r['syncs']}, "
+              f"peak {r['peak_mb']:.1f} MB; top {top(r)}")
+    print(f"  11a groups {a['groups']}; scorer's per-action count {a['batched']['per_action']}")
+    side = SEARCH_N ** (SEARCH_D // 2)
+    print(f"  11a ({side}, {side}) f32, {DRIVER_MEMBERS} of the group's "
+          f"{a['groups'][f'{side}x{side}']} (ms a matrix, max |s - s_LAPACK f64| / s_max): "
+          + "; ".join(f"{k} {ms:.2f} ({err:.1e})" for k, (ms, err) in a["drivers"].items()))
+    print(json.dumps({"search_11a": _sig({
+        k: {f: r[f] for f in ("count", "best_cost", "wall_s", "busy_share", "kernels", "syncs",
+                              "peak_mb")} for k, r in a.items() if k in ("batched", "per_action")}
+        | {"groups": a["groups"], "drivers": {k: list(v) for k, v in a["drivers"].items()}})},
+        separators=(",", ":")))
+
+    _reset_counts(zp, ev)
+    b = _spectra_leg(tnt, zp, ev, dev)
+    launches["11b"] = _counts(zp, ev)
+    for key, r in b.items():
+        print(f"  11b SplitSpectra.build {key}: {r['groups']} groups, wall {r['wall_s']:.3f} s, "
+              f"peak {r['peak_mb']:.1f} MB, syncs {r['syncs']}; spectra against LAPACK f64 "
+              f"{ {k: float(f'{v:.2e}') for k, v in r['err'].items()} }")
+    print(json.dumps({"search_11b": _sig({k: {f: r[f] for f in ("wall_s", "peak_mb", "syncs", "err")}
+                                          for k, r in b.items()})}, separators=(",", ":")))
+
+    _reset_counts(zp, ev)
+    c = _search_small_leg(tnt, zp, ev, dev)
+    launches["11c"] = _counts(zp, ev)
+    for key in ("partition", "dfs"):
+        r = c[key]
+        print(f"  11c {key}: {r['count']}, best cost {r['best_cost']}, error {r['error']:.4f}; "
+              f"wall {r['wall_s']:.3f} s, busy {r['busy_ms']:.1f} ms ({100 * r['busy_share']:.0f}%) "
+              f"over {r['kernels']} kernels, syncs {r['syncs']}")
+    w = c["watchdog"]
+    print(f"  11c partition through the watchdog child: {w['count']}, best cost {w['best_cost']}; "
+          f"wall {w['wall_s']:.2f} s (the child's start included), syncs {w['syncs']}; the child "
+          f"saw {w['child']}")
+    print(json.dumps({"search_11c": _sig({
+        k: {f: r[f] for f in ("count", "best_cost", "error", "wall_s", "busy_share", "syncs")
+            if f in r} for k, r in c.items()})}, separators=(",", ":")))
+    print(f"  phase 11 wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -3449,6 +3772,7 @@ def main() -> int:
     for name, key in (("inner", "h1"), ("evaluate", "h2")):
         times[name]["evolve"] = {k: r[key] for k, r in evolve_kernels.items()}
     _, slice_launches = phase_slice12(zp, ev, main_train[0], pb, *main_train[1:3])
+    slice_launches["search"] = phase_search(zp, ev, dev)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

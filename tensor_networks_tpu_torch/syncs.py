@@ -20,6 +20,7 @@ import torch
 #: read and any other float or int read
 SYNC_KINDS = (("bool(flag)", "stop test"), (".cpu()", "record fetch"),
               ("torch.linalg.svd", "svd info"), ("torch.linalg.eigh", "eigh info"),
+              ("torch.linalg.eigvalsh", "eigh info"),
               ("int(_trunc_count", "svd_round rank read"), ("float(", "host float"),
               ("int(", "host int"))
 

@@ -852,3 +852,76 @@ def test_als_completion_on_the_card_matches_the_cpu(dev):
         errs[str(where)] = fit_network_als(model, inds, idx, y, sweeps=2)
     for a, b in zip(errs[str(dev)], errs["cpu"]):
         assert abs(a - b) <= max(1e-6 * abs(b), 1e-12), errs
+
+
+def _search_net(shape, seed, where):
+    rng = np.random.default_rng(seed)
+    net = TensorNetwork()
+    net.add_node("G", Tensor(torch.from_numpy(rng.standard_normal(shape)).to(where),
+                             [Index(f"s{k}", n) for k, n in enumerate(shape)]))
+    return net
+
+
+def _search_config(eps, **engine):
+    from tensor_networks_tpu_torch.search import SearchConfig
+
+    config = SearchConfig()
+    config.engine.eps = eps
+    for key, value in engine.items():
+        setattr(config.engine, key, value)
+    return config
+
+
+def test_batched_search_scoring_on_the_card(dev, monkeypatch):
+    """Batched scoring is on by default for a state on the card: bfs
+    (depth 3, multi-node states included) and dfs give the per-action
+    path's counts and best cost, with no action left to it; every
+    child's factors stay on the card."""
+    from tensor_networks_tpu_torch.search import SearchEngine, SearchState, batched
+
+    for kind in ("bfs", "dfs"):
+        runs = {}
+        for force in ("0", None):
+            if force is None:
+                monkeypatch.delenv("TNT_SEARCH_DEVICE", raising=False)
+            else:
+                monkeypatch.setenv("TNT_SEARCH_DEVICE", force)
+            batched.scored_splits.per_action = 0
+            stats = getattr(SearchEngine(_search_config(0.4, max_ops=3)), kind)(
+                _search_net((3, 4, 5, 6), 13, dev))
+            runs[force] = (stats["count"], stats["best_network"].cost(),
+                           batched.scored_splits.per_action)
+            assert stats["best_network"].value(next(iter(stats["best_network"].network.nodes))).is_cuda
+        assert runs["0"][:2] == runs[None][:2], (kind, runs)
+        assert runs[None][2] == 0
+    monkeypatch.delenv("TNT_SEARCH_DEVICE", raising=False)
+    net = _search_net((4, 6, 5, 3), 2, dev)
+    state = SearchState(net, 0.5 * net.norm())
+    actions = state.get_legal_actions(True)
+    scored = batched.scored_splits(state, actions)
+    assert set(scored) == set(actions)
+    for action in actions:
+        for child in state.take_action(action, _search_config(0.5), svd=scored[action][0]):
+            assert all(child.network.value(n).is_cuda for n in child.network.network.nodes)
+
+
+def test_watchdog_on_a_card_network(dev):
+    """Partition search through the watchdog child on a network on the
+    card returns the in-process result; the child was sent CPU copies
+    and opened no CUDA context."""
+    import pickle
+
+    from tensor_networks_tpu_torch.search import SearchEngine, spectra, synthesis
+
+    inline = SearchEngine(_search_config(0.5)).partition_search(_search_net((3, 4, 5), 1, dev))
+    child = SearchEngine(_search_config(0.5, timeout=120.0)).partition_search(
+        _search_net((3, 4, 5), 1, dev))
+    assert child["count"] == inline["count"] == 7
+    assert child["best_network"].cost() == inline["best_network"].cost()
+    assert abs(child["reconstruction_error"] - inline["reconstruction_error"]) <= 1e-12
+    assert synthesis.explore_with_watchdog.last_child == {
+        "CUDA_VISIBLE_DEVICES": "", "cuda_initialized": False}
+    net = _search_net((3, 4, 5), 1, dev)
+    sp = spectra.SplitSpectra(_search_config(0.5)).build(net.contract())
+    host, *_ = pickle.loads(synthesis.watchdog_payload(net, 0.5, sp, _search_config(0.5), True))
+    assert all(host.value(n).device.type == "cpu" for n in host.network.nodes)
