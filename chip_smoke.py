@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-eleven phases:
+twelve phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -151,12 +151,30 @@ eleven phases:
    value); (c) ``bench.py``'s ``_leg_search_small``: partition
    search (8x9x10x11, eps 0.3, 63 programs) and dfs (3x4x5, eps 0.5, 8
    states), then the partition search through the watchdog child: 63,
-   the same best cost, a child that saw no card.
+   the same best cost, a child that saw no card;
+12. the multi-device layer (``tensor_networks_tpu_torch.parallel``) in a
+   one-rank NCCL group on a (1, 1) mesh, TF32 off, the launch counters
+   reset just before each leg and read just after: (a) the sharded
+   training step at the main shape (d=50, n=32, r=100, f32, batches of
+   8192 points): 5 SGD and 3 Adam steps, each with the plain forward
+   and with H2's (``fast_eval``), the losses of the two within 1e-4 and
+   one step's gradients too, H2 launched by the fast runs only, ms a
+   step (CUDA events), busy share, and no host sync in a step but the
+   loss read; (b) the mode-sharded inner product at d=50 in f32 and f64
+   against H1 (1e-5 / 1e-12 of the norms), its all-reduces counted (one
+   per core) and timed; (c) the train-sharded sweeps in f64 and f32:
+   right-orthogonalization (rows orthonormal to 1e-12 / 1e-5, the train
+   rebuilt), the inner product against H1, and Gram and prefix rounding
+   of ``a + a`` against ``tt_round_fixed`` (f64 at eps 1e-6: the same
+   kept ranks, the norm within 1e-10; both dtypes: the error norm within
+   eps), each call's wall and busy share; (d) 12a's params and Adam
+   state written and read back bit for bit.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
 one with phase 10's (``slice12``), one for each leg of phase 11
-(``search_11a``, ``search_11b``, ``search_11c``), one with per-kernel results,
+(``search_11a``, ``search_11b``, ``search_11c``) and of phase 12
+(``parallel_12a`` to ``parallel_12d``), one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -3674,6 +3692,330 @@ def phase_search(zp, ev, dev):
     return launches
 
 
+#: 12a: steps of each optimizer and their learning rates
+PAR_STEPS = {"sgd": 5, "adam": 3}
+PAR_LR = {"sgd": 0.1, "adam": 1e-3}
+#: 12a: the bar between the fast (H2) and plain forward, relative
+PAR_TOL = 1e-4
+#: 12b/12c: the bars against H1 and of orthonormality, by dtype
+PAR_INNER_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: 12c: the rounding tolerance by dtype (f32 above its Gram floor)
+PAR_EPS = {torch.float64: 1e-6, torch.float32: 1e-2}
+
+
+def _c64(*xs):
+    """Contiguous float64 copies (H1's operands)."""
+    return [x.double().contiguous() for x in xs]
+
+
+def _rel_max(a, b):
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+def _parallel_steps(par, training, mesh, init, batches, opt, fast):
+    """One optimizer's steps from ``init`` through the entry points:
+    ``run(read)`` takes them all (reading each loss when ``read``), ``one``
+    takes the first and reads its loss; and the placed params and
+    batches."""
+    if opt == "sgd":
+        step, place_params, place_batch = par.make_train_step(mesh, fast_eval=fast)
+        init_state = None
+    else:
+        step, init_state, place_params, place_batch = training.make_adam_train_step(
+            mesh, lr=PAR_LR["adam"], fast_eval=fast)
+    placed = [place_batch(*b) for b in batches[:PAR_STEPS[opt]]]
+    params0 = place_params(init)
+
+    def take(params, state, idx, y):
+        if state is None:
+            params, loss = step(params, idx, y, PAR_LR["sgd"])
+        else:
+            params, state, loss = step(params, state, idx, y)
+        return params, state, loss
+
+    def run(read):
+        params, state = params0, init_state and init_state(params0)
+        losses = []
+        for idx, y in placed:
+            params, state, loss = take(params, state, idx, y)
+            losses.append(float(loss) if read else loss)
+        return params, state, losses
+
+    state0 = init_state and init_state(params0)
+
+    def one():
+        return float(take(params0, state0, *placed[0])[2])
+
+    return run, one, params0, placed
+
+
+def _parallel_step_leg(par, training, pm, mesh, zp, ev, dev):
+    """12a: SGD and Adam at the main shape, the plain forward against
+    H2's (``fast_eval``); each run's losses, launches, ms a step, busy
+    share and host syncs a step; one step's gradients fast against
+    plain.  Returns (rows, the fast Adam run's params and state)."""
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    init = par.init_tt_params(D, N, R, torch.float32, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED + 120)
+    batches = [(rng.integers(0, N, (B, D)), rng.standard_normal(B).astype(np.float32))
+               for _ in range(max(PAR_STEPS.values()))]
+    rows, keep = {}, None
+    for opt in ("sgd", "adam"):
+        for fast in (False, True):
+            run, one, params0, placed = _parallel_steps(par, training, mesh, init, batches,
+                                                         opt, fast)
+            _reset_counts(zp, ev)
+            t0 = time.perf_counter()
+            params, state, losses = run(True)  # the main path: a loss read a step
+            wall = time.perf_counter() - t0
+            row = {"losses": losses, "wall_s": wall, "launches": _counts(zp, ev)}
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"phase 12 12a {opt} fast={fast}: losses {losses}")
+            if opt == "adam" and fast:
+                keep = (params, state)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, _, out = run(False)
+            stop.record()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(torch.stack(out)).all()):
+                raise AssertionError(f"phase 12 12a {opt}: timed losses not finite")
+            row["ms_per_step"] = start.elapsed_time(stop) / len(placed)
+            _, busy, kernels, top = _device_profile(lambda: run(False))
+            row.update(busy_share=busy / (row["ms_per_step"] * len(placed)),
+                       kernels=kernels, top=top)
+            row["syncs"], _ = host_syncs(one)
+            if row["syncs"] != {"host float": 1}:
+                raise AssertionError(f"phase 12 12a {opt} fast={fast}: host syncs in a step "
+                                     f"{row['syncs']} (only the loss read allowed)")
+            rows[f"{opt}_{'fast' if fast else 'plain'}"] = row
+        plain, fast_row = rows[f"{opt}_plain"], rows[f"{opt}_fast"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(fast_row["losses"], plain["losses"]))
+        plain["loss_rel"] = fast_row["loss_rel"] = worst
+        if not worst <= PAR_TOL or fast_row["launches"]["evaluate"] < len(fast_row["losses"]) \
+                or plain["launches"]["evaluate"] != 0:
+            raise AssertionError(f"phase 12 12a {opt}: losses fast against plain {worst:.3e} "
+                                 f"(bar {PAR_TOL}), H2 launches fast "
+                                 f"{fast_row['launches']['evaluate']}, plain "
+                                 f"{plain['launches']['evaluate']}")
+    group = pm.axes_group(mesh, ("data",))
+    grads = {fast: training._value_and_grad(training._make_loss_fn(mesh, fast), group,
+                                            params0, *placed[0])[1] for fast in (False, True)}
+    rows["grad_rel"] = max(_rel_max(a, b) for a, b in zip(grads[True], grads[False]))
+    if not rows["grad_rel"] <= PAR_TOL:
+        raise AssertionError(f"phase 12 12a: gradients fast against plain {rows['grad_rel']:.3e}")
+    return rows, keep
+
+
+def _parallel_inner_leg(par, pm, mesh, zp, ev, dev):
+    """12b: the mode-sharded inner product at d=50 against H1, its
+    all-reduce count and each all-reduce's ms; both timed (CUDA events)."""
+    from tensor_networks_tpu_torch.parallel.sharded import TTCores
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 121)
+    group = mesh.get_group("model")
+    for dtype in (torch.float32, torch.float64):
+        a = TTCores(*_train(g, D, N, R, 1 / math.sqrt(N * R), dtype=dtype))
+        b = TTCores(*_train(g, D, N, R, 1 / math.sqrt(N * R), dtype=dtype))
+        sa, sb = par.shard_tt_params(mesh, a), par.shard_tt_params(mesh, b)
+        pm.all_reduce.calls = 0
+        got = {"aa": par.tt_inner_mode_sharded(mesh, sa, sa).item(),
+               "ab": par.tt_inner_mode_sharded(mesh, sa, sb).item()}
+        count = pm.all_reduce.calls // 2
+        ref = {"aa": zp.tt_inner(*a, *a).item(), "ab": zp.tt_inner(*a, *b).item()}
+        # <a, b> of independent trains is ~1e-40 of the norms: held to their
+        # product; <a, a> to itself
+        scale = math.sqrt(ref["aa"] * zp.tt_inner(*b, *b).item())
+        err = max(abs(got["aa"] - ref["aa"]) / ref["aa"], abs(got["ab"] - ref["ab"]) / scale)
+        if not err <= PAR_INNER_TOL[dtype] or count != D:
+            raise AssertionError(f"phase 12 12b {dtype}: {err:.3e} against H1, "
+                                 f"{count} all-reduces a call (want {D})")
+        carry = torch.zeros(R, R, dtype=dtype, device=dev)
+        rows[str(dtype).removeprefix("torch.")] = {
+            "err": err, "all_reduces": count,
+            "ms": _time_ms(lambda: par.tt_inner_mode_sharded(mesh, sa, sb)),
+            "h1_ms": _time_ms(lambda: zp.tt_inner(*a, *b)),
+            "all_reduce_ms": _time_ms(lambda: pm.all_reduce(carry, group), reps=50)}
+    return rows
+
+
+def _parallel_sweeps_leg(tnt, par, mesh, zp, ev, dev):
+    """12c: the train-sharded sweeps on one rank at d=50 (48 middle cores
+    on it): right-orthogonalization and the inner product of the main
+    train against H1; Gram and prefix rounding of a + a at PAR_EPS
+    against ``tt_round_fixed`` (kept ranks) and H1 (norm, error norm);
+    wall and busy share of each call."""
+    from tensor_networks_tpu_torch.ops.fast import tt_round_fixed
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 122)
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        first, mids, last = _train(g, D, N, R, 1 / math.sqrt(N * R), dtype=dtype)
+        m_sh, l_sh = par.place_train_sharded(mesh, mids, last)
+        tol = PAR_INNER_TOL[dtype]
+
+        def timed(call):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _, busy, kernels, _ = _device_profile(call)
+            return out, {"wall_s": wall, "busy_share": busy / (1e3 * wall), "kernels": kernels}
+
+        (carry, mq, lq), row = timed(lambda: par.tt_right_orth_sharded(mesh, m_sh, l_sh))
+        # NaN fails every bar below: each is written "not x <= bar"
+        eye = torch.eye(R, dtype=dtype, device=dev)
+        orth = max((torch.einsum("kanb,kcnb->kac", mq, mq) - eye).abs().max().item(),
+                   (lq[:N] @ lq[:N].T - eye[:N, :N]).abs().max().item(),
+                   lq[N:].abs().max().item())
+        x64 = _c64(first, mids, last)
+        nx = zp.tt_inner(*x64, *x64).item()
+        y64 = _c64(first @ carry, mq, lq)
+        rebuild = max(abs(zp.tt_inner(*y64, *x64).item() - nx), abs(zp.tt_inner(*y64, *y64).item() - nx)) / nx
+        if not (orth <= tol and rebuild <= (1e-10 if dtype == torch.float64 else 1e-4)):
+            raise AssertionError(f"phase 12 12c {name} right-orth: orthonormal to {orth:.3e}, "
+                                 f"rebuilt to {rebuild:.3e}")
+        row.update(orth=orth, rebuild=rebuild)
+        rows[f"orth_{name}"] = row
+
+        inner, row = timed(lambda: par.tt_inner_train_sharded(mesh, first, m_sh, l_sh,
+                                                               first, m_sh, l_sh))
+        ref = zp.tt_inner(first, mids, last, first, mids, last).item()
+        row["err"] = abs(inner.item() - ref) / ref
+        if not row["err"] <= tol:
+            raise AssertionError(f"phase 12 12c {name} inner: {row['err']:.3e} against H1")
+        rows[f"inner_{name}"] = row
+
+        # a + a: rank 200 holding rank 100
+        f2 = torch.cat([first, first], 1)
+        m2 = torch.zeros(D - 2, 2 * R, N, 2 * R, dtype=dtype, device=dev)
+        m2[:, :R, :, :R] = mids
+        m2[:, R:, :, R:] = mids
+        l2 = torch.cat([last, last], 0)
+        net = tnt.packed.unpack(tnt.packed.PackedTT(f2, m2, l2))
+        m2_sh, l2_sh = par.place_train_sharded(mesh, m2, l2)
+        x2 = _c64(f2, m2, l2)
+        nx2 = zp.tt_inner(*x2, *x2).item()
+        eps = PAR_EPS[dtype]
+        for method, fn in (("gram", par.tt_gram_round_sharded),
+                           ("prefix", par.tt_prefix_round_sharded)):
+            (fo, mo, lo, k0, ks), row = timed(lambda: fn(mesh, f2, m2_sh, l2_sh, eps))
+            ranks = [int(k0)] + ks.tolist()
+            (_, ref_ranks), single = timed(lambda: tt_round_fixed(net, eps, method=method))
+            y2 = _c64(fo, mo, lo)
+            ny2 = zp.tt_inner(*y2, *y2).item()
+            err = math.sqrt(max(ny2 - 2 * zp.tt_inner(*y2, *x2).item() + nx2, 0.0) / nx2)
+            norm_rel = abs(math.sqrt(ny2) - math.sqrt(nx2)) / math.sqrt(nx2)
+            row.update(ranks_sum=sum(ranks), ranks_max=max(ranks), single_wall_s=single["wall_s"],
+                       rank_diff=max(abs(a - b) for a, b in zip(ranks, ref_ranks)),
+                       err_norm=err, norm_rel=norm_rel)
+            exact = dtype == torch.float64
+            if not (err <= eps and (not exact or (ranks == ref_ranks and norm_rel <= 1e-10))):
+                raise AssertionError(f"phase 12 12c {name} {method}: ranks {ranks} against "
+                                     f"tt_round_fixed {ref_ranks}, error norm {err:.3e} (eps "
+                                     f"{eps}), norms {norm_rel:.3e}")
+            rows[f"{method}_{name}"] = row
+    return rows
+
+
+def _parallel_checkpoint_leg(ckpt, mesh, params, state):
+    """12d: 12a's params and Adam state written and read back on the card,
+    bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_train_state(path, params, opt_state=state, step=PAR_STEPS["adam"], mesh=mesh)
+        t1 = time.perf_counter()
+        back, back_state, step = ckpt.load_train_state(path, mesh=mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path + ".npz")
+    same = (step == PAR_STEPS["adam"] and back[0].device == params[0].device
+            and all(torch.equal(a, b) for a, b in zip(back, params))
+            and torch.equal(back_state.count, state.count)
+            and all(torch.equal(a, b) for m in ("mu", "nu")
+                    for a, b in zip(getattr(back_state, m), getattr(state, m))))
+    if not same:
+        raise AssertionError("phase 12 12d: the checkpoint did not read back bit for bit")
+    return {"save_s": t1 - t0, "load_s": t2 - t1, "params_mb": sum(p.numel() * 4 for p in params) / 1e6,
+            "file_mb": size / 1e6}
+
+
+def phase_parallel(zp, ev, dev):
+    """Phase 12 (12a-12d), TF32 off, in one NCCL group of one rank on a
+    (1, 1) mesh; each leg to its bars, one JSON line a leg.  Returns H1's
+    and H2's launches in each leg."""
+    import torch.distributed as dist
+
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import parallel as par
+    from tensor_networks_tpu_torch.parallel import checkpoint, training
+    from tensor_networks_tpu_torch.parallel import mesh as pm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12 runs with TF32 off")
+    print("phase 12 the multi-device layer on one card (a one-rank NCCL group):")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = par.make_mesh((1, 1))
+    init_s = time.perf_counter() - t0
+    launches = {}
+
+    a, (params, state) = _parallel_step_leg(par, training, pm, mesh, zp, ev, dev)
+    for key in ("sgd_plain", "sgd_fast", "adam_plain", "adam_fast"):
+        r = a[key]
+        launches[f"12a_{key}"] = r["launches"]
+        print(f"  12a {key} d={D} n={N} r={R} f32, B={B}: losses "
+              f"{[float(f'{x:.6g}') for x in r['losses']]} (fast against plain "
+              f"{r['loss_rel']:.2e}); {r['ms_per_step']:.3f} ms a step (CUDA events), busy "
+              f"{100 * r['busy_share']:.0f}% over {r['kernels']} kernels, syncs a step "
+              f"{r['syncs']}, H2 launches {r['launches']['evaluate']}; top "
+              f"{[(n, round(ms, 2), c) for n, ms, c in r['top']]}")
+    print(f"  12a gradients fast against plain: {a['grad_rel']:.3e} of the largest")
+    print(json.dumps({"parallel_12a": _sig({
+        k: {f: r[f] for f in ("ms_per_step", "busy_share", "kernels", "loss_rel", "syncs")}
+        for k, r in a.items() if k != "grad_rel"} | {"grad_rel": a["grad_rel"]})},
+        separators=(",", ":")))
+
+    _reset_counts(zp, ev)
+    b = _parallel_inner_leg(par, pm, mesh, zp, ev, dev)
+    launches["12b"] = _counts(zp, ev)
+    for key, r in b.items():
+        print(f"  12b mode-sharded inner {key}: {r['err']:.2e} against H1 (<a, a> of itself, "
+              f"<a, b> of the norms), "
+              f"{r['all_reduces']} all-reduces of {r['all_reduce_ms'] * 1e3:.1f} us each; "
+              f"{r['ms']:.4f} ms against H1's {r['h1_ms']:.4f}")
+    print(json.dumps({"parallel_12b": _sig(b)}, separators=(",", ":")))
+
+    _reset_counts(zp, ev)
+    c = _parallel_sweeps_leg(tnt, par, mesh, zp, ev, dev)
+    launches["12c"] = _counts(zp, ev)
+    for key, r in c.items():
+        extra = ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in r.items() if k not in ("wall_s", "busy_share", "kernels"))
+        print(f"  12c {key}: wall {r['wall_s']:.3f} s, busy {100 * r['busy_share']:.0f}% over "
+              f"{r['kernels']} kernels; {extra}")
+    print(json.dumps({"parallel_12c": _sig(c)}, separators=(",", ":")))
+
+    d = _parallel_checkpoint_leg(checkpoint, mesh, params, state)
+    print(f"  12d checkpoint: params {d['params_mb']:.1f} MB, the file with Adam's moments "
+          f"{d['file_mb']:.1f} MB; save {d['save_s']:.3f} s, load {d['load_s']:.3f} s; "
+          "read back bit for bit")
+    dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    print(json.dumps({"parallel_12d": _sig(d | {"nccl_init_s": init_s, "wall_s": wall})},
+                     separators=(",", ":")))
+    print(f"  phase 12 wall {wall:.1f} s (the group's start {init_s:.2f} s)")
+    return launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -3773,6 +4115,7 @@ def main() -> int:
         times[name]["evolve"] = {k: r[key] for k, r in evolve_kernels.items()}
     _, slice_launches = phase_slice12(zp, ev, main_train[0], pb, *main_train[1:3])
     slice_launches["search"] = phase_search(zp, ev, dev)
+    slice_launches["parallel"] = phase_parallel(zp, ev, dev)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

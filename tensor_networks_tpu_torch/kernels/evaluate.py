@@ -80,6 +80,16 @@ def tt_evaluate_plain(first, mids, last, idx) -> torch.Tensor:
     return torch.sum(v * sel_last.T, dim=-1)
 
 
+def clamp_modes(idx: torch.Tensor, n0: int, n: int, nl: int) -> torch.Tensor:
+    """(B, d) indices with column 0 clamped into [0, n0), the last into
+    [0, nl) and the others into [0, n): the JAX gather's out-of-range
+    rule.  Made on ``idx``'s device from Python ints, so it copies
+    nothing from the host (no sync on the card)."""
+    pos = torch.arange(idx.shape[1], device=idx.device)
+    ub = torch.where(pos == 0, n0 - 1, torch.where(pos == idx.shape[1] - 1, nl - 1, n - 1))
+    return torch.minimum(idx.clamp(min=0), ub.to(idx.dtype)[None, :])
+
+
 class GroupTables(NamedTuple):
     """The points of every step, grouped by mode and cut into tiles.
 

@@ -702,10 +702,7 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
     r = last.shape[0]
     dt = first.dtype
     dev = first.device
-    mach = torch.finfo(dt).eps
-    nb = d - 1
     fails: list = []
-    eye = _eye(r, first)
 
     # ---- fused H/G chains: GEMM-only -----------------------------------
     h0 = first.T @ first
@@ -737,6 +734,34 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
     lh_all = torch.log(s0) + torch.cat([zero, ls_seq[:, 0]])
     lg_all = torch.log(t0) + torch.cat([torch.flip(ls_seq[:, 1], [0]), zero])
 
+    norm2 = torch.einsum("kab,kba->k", h_all, g_all)  # ||X||^2, bond units
+    eps_b = torch.as_tensor(eps, dtype=dt, device=dev)
+    if relative:
+        tau2 = eps_b**2 * norm2 / ((d - 1.0) * r)
+    else:
+        tau2 = eps_b**2 / ((d - 1.0) * r) * torch.exp(-(lh_all + lg_all))
+    ks, a_ins, bt_ins = _prefix_bonds(h_all, g_all, tau2, bounds, chain_precision == "dw",
+                                      _SIGN_ITERS, escalate, fails)
+    first_out = first @ a_ins[0]
+    mids_out = torch.einsum("kma,kanb,kbp->kmnp", bt_ins[:-1], mids, a_ins[1:])
+    last_out = bt_ins[-1] @ last
+    return first_out, mids_out, last_out, ks, _failed(fails, first)
+
+
+def _prefix_bonds(h_all, g_all, tau2, bounds, dw: bool, sign_iters: int,
+                  escalate: bool, fails: list):
+    """The prefix sweep's decisions on a batch of bonds from their left
+    and right Grams H and G (no communication: the train-sharded form runs
+    it on each rank's own bonds).  ``tau2`` is the per-direction
+    threshold before the ghost terms; ``sign_iters`` caps the sign
+    iteration (the trust filters' at :data:`_TRUST_SIGN_ITERS`).  Returns
+    the kept ranks and the oblique insertions ``a`` and ``b^T`` of every
+    bond."""
+    nb, r = h_all.shape[0], h_all.shape[-1]
+    dt, dev = h_all.dtype, h_all.device
+    mach = torch.finfo(dt).eps
+    eye = _eye(r, h_all)
+
     # ---- batched whitening: one Cholesky over both chains --------------
     hg_all = torch.cat([h_all, g_all])  # (2 nb, r, r)
     jit_hg = (_trace(hg_all) / r + _TINY) * (20.0 * mach)
@@ -745,18 +770,10 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
     e_all = l_hg[:nb].mT  # upper: H = E^T E
     f_all = l_hg[nb:].mT  # upper: G = F^T F
 
-    # ---- thresholds ------------------------------------------------------
-    norm2 = torch.einsum("kab,kba->k", h_all, g_all)  # ||X||^2, bond units
-    eps_b = torch.as_tensor(eps, dtype=dt, device=dev)
-    if relative:
-        tau2 = eps_b**2 * norm2 / ((d - 1.0) * r)
-    else:
-        tau2 = eps_b**2 / ((d - 1.0) * r) * torch.exp(-(lh_all + lg_all))
-
     def sym(x):
         return 0.5 * (x + x.mT)
 
-    if chain_precision != "dw":
+    if not dw:
         # tau^2 inflated by the trace-product ghost bound
         ghost = jit_h * _trace(g_all) + jit_g * _trace(h_all)
         tau2 = tau2 + 2.0 * ghost
@@ -771,27 +788,24 @@ def _tt_round_prefix_sweep(first, mids, last, eps, relative, bounds,
         # explicit symmetrization: Newton-Schulz diverges for eigenvalues
         # pushed off the real axis by ulp-level asymmetry
         trust = _sign_projectors(sym(hg_all) - theta[:, None, None] * eye[None],
-                                 _TRUST_SIGN_ITERS)
+                                 min(sign_iters, _TRUST_SIGN_ITERS))
         ep = torch.einsum("kab,kbc->kac", e_all, trust[:nb])
         pf = torch.einsum("kab,kcb->kac", trust[nb:], f_all)
         w_all = torch.einsum("kab,kbc->kac", ep, pf)
     ww = sym(torch.einsum("kab,kcb->kac", w_all, w_all))
-    if chain_precision == "dw":
+    if dw:
         # noise-floor clamp: ww carries ~eps lambda_max of eigenvalue noise
         tau2 = tau2 + 2.0 * mach * _power_lmax(ww, probe)
 
     # ---- batched sign projectors and bases -------------------------------
-    proj = _sign_projectors(ww - tau2[:, None, None] * eye[None], _SIGN_ITERS)
+    proj = _sign_projectors(ww - tau2[:, None, None] * eye[None], sign_iters)
     ks, masks = _kept_ranks(proj, bounds)
     q_all = _proj_basis_cols(proj, masks, mach, escalate, fails)
 
-    # ---- oblique insertions a = E^{-1} Q, b^T = Q^T E; the cores ---------
+    # ---- oblique insertions a = E^{-1} Q, b^T = Q^T E ---------------------
     a_ins = torch.linalg.solve_triangular(e_all, q_all, upper=True)  # E a = Q
     bt_ins = torch.einsum("kca,kcb->kab", q_all, e_all)
-    first_out = first @ a_ins[0]
-    mids_out = torch.einsum("kma,kanb,kbp->kmnp", bt_ins[:-1], mids, a_ins[1:])
-    last_out = bt_ins[-1] @ last
-    return first_out, mids_out, last_out, ks, _failed(fails, first)
+    return ks, a_ins, bt_ins
 
 
 def sweep_noise_floor(dtype: torch.dtype, d: int) -> float:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from tensor_networks_tpu_torch.kernels.evaluate import (
+    clamp_modes,
     tt_evaluate,
     tt_evaluate_plain,
 )
@@ -697,11 +698,8 @@ def evaluate_ensemble(
 def _clamp_idx(first, mids, last, idx) -> torch.Tensor:
     """``idx`` on the cores' device, each column clamped into its mode."""
     idx = torch.as_tensor(idx, device=first.device)
-    d_modes = idx.shape[1]
-    mid_caps = [] if mids is None else [mids.shape[2]] * (d_modes - 2)
-    caps = [first.shape[0]] + mid_caps + [last.shape[1]]
-    ub = torch.tensor(caps, device=idx.device, dtype=idx.dtype) - 1
-    return torch.minimum(idx.clamp(min=0), ub[None, :])
+    n = first.shape[0] if mids is None else mids.shape[2]
+    return clamp_modes(idx, first.shape[0], n, last.shape[1])
 
 
 def _eval_routed(first, mids, last, idx, precision: str) -> torch.Tensor:

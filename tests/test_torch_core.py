@@ -354,12 +354,14 @@ def test_constructors_honour_a_named_device():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter that imports the port, its cross package, the
-    time integrators and every module of it has loaded no ``jax`` and no
-    ``tensor_networks_tpu``."""
+    time integrators, the multi-device layer and every module of it has
+    loaded no ``jax`` and no ``tensor_networks_tpu``."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import tensor_networks_tpu_torch as t\n"
         "import tensor_networks_tpu_torch.cross\n"
+        "from tensor_networks_tpu_torch.parallel import (checkpoint, mesh, sharded,\n"
+        "                                                sweeps, training)\n"
         "from tensor_networks_tpu_torch import (evolve_tdvp, evolve_tdvp2, evolve_theta,\n"
         "                                       tdvp_trajectory)\n"
         "for m in pkgutil.walk_packages(t.__path__, t.__name__ + '.'):\n"

@@ -925,3 +925,84 @@ def test_watchdog_on_a_card_network(dev):
     sp = spectra.SplitSpectra(_search_config(0.5)).build(net.contract())
     host, *_ = pickle.loads(synthesis.watchdog_payload(net, 0.5, sp, _search_config(0.5), True))
     assert all(host.value(n).device.type == "cpu" for n in host.network.nodes)
+
+
+@pytest.fixture
+def one_rank_nccl(dev):
+    """A one-rank NCCL group on the card for the test, destroyed after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    yield
+    dist.destroy_process_group()
+
+
+def test_parallel_step_fast_against_plain_on_one_rank(dev, one_rank_nccl):
+    """The sharded SGD step on a (1, 1) NCCL mesh: the H2 forward
+    (``fast_eval``) against the plain one, 1e-4 relative; H2 launched by
+    the fast step only."""
+    from tensor_networks_tpu_torch.parallel import init_tt_params, make_mesh, make_train_step
+
+    mesh = make_mesh((1, 1))
+    rng = np.random.default_rng(4)
+    idx, y = rng.integers(0, 16, (1024, 8)), rng.standard_normal(1024).astype(np.float32)
+    out = {}
+    for fast in (False, True):
+        step, place_params, place_batch = make_train_step(mesh, fast_eval=fast)
+        params = place_params(init_tt_params(8, 16, 32, seed=2, device=dev))
+        tev.tt_evaluate_cuda.launches = 0
+        new, loss = step(params, *place_batch(idx, y), 1e-2)
+        out[fast] = (float(loss), new, tev.tt_evaluate_cuda.launches)
+    assert out[False][2] == 0 and out[True][2] == 1
+    assert abs(out[True][0] - out[False][0]) <= 1e-4 * abs(out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mode_sharded_inner_against_h1_on_one_rank(dev, one_rank_nccl, dtype):
+    from tensor_networks_tpu_torch.parallel import make_mesh, shard_tt_params, tt_inner_mode_sharded
+    from tensor_networks_tpu_torch.parallel.sharded import TTCores
+
+    mesh = make_mesh((1, 1))
+    g = torch.Generator().manual_seed(12)
+    a = _train(g, 12, 32, 48, dtype, dev)
+    b = _train(g, 12, 32, 48, dtype, dev)
+    got = tt_inner_mode_sharded(mesh, shard_tt_params(mesh, TTCores(*a)),
+                                shard_tt_params(mesh, TTCores(*b))).item()
+    ref = tzp.tt_inner_cuda(*a, *b).item()
+    scale = math.sqrt(tzp.tt_inner_plain(*_f64(a), *_f64(a)).item()
+                      * tzp.tt_inner_plain(*_f64(b), *_f64(b)).item())
+    assert abs(got - ref) <= (1e-5 if dtype == torch.float32 else 1e-12) * scale
+
+
+def test_sharded_rounding_against_the_single_device_sweeps(dev, one_rank_nccl):
+    """Train-sharded Gram and prefix rounding on one rank of a (1, 1) mesh
+    keep the ranks of ``tt_round_fixed(method="gram" / "prefix")`` on a
+    doubled f64 train, and its values at 4096 points (H2) to 1e-10 of
+    their largest."""
+    from tensor_networks_tpu_torch.ops.fast import tt_round_fixed
+    from tensor_networks_tpu_torch.parallel import (
+        make_mesh,
+        place_train_sharded,
+        tt_gram_round_sharded,
+        tt_prefix_round_sharded,
+    )
+
+    mesh = make_mesh((1, 1))
+    g = torch.Generator().manual_seed(21)
+    f, m, l = _train(g, 12, 8, 6, torch.float64, dev)
+    mids = torch.zeros(10, 12, 8, 12, dtype=torch.float64, device=dev)
+    mids[:, :6, :, :6] = m
+    mids[:, 6:, :, 6:] = m
+    first, last = torch.cat([f, f], 1), torch.cat([l, l], 0)
+    net = tpk.unpack(tpk.PackedTT(first, mids, last))
+    idx = torch.randint(0, 8, (4096, 12), generator=g).to(dev)
+    ref = tpk.evaluate(tpk.PackedTT(first, mids, last), idx)
+    for method, fn in (("gram", tt_gram_round_sharded), ("prefix", tt_prefix_round_sharded)):
+        m_sh, l_sh = place_train_sharded(mesh, mids, last)
+        fo, mo, lo, k0, ks = fn(mesh, first, m_sh, l_sh, 1e-6)
+        assert [int(k0)] + ks.tolist() == tt_round_fixed(net, 1e-6, method=method)[1] == [6] * 11
+        got = tpk.evaluate(tpk.PackedTT(fo, mo, lo), idx)
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-10, method
