@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-twelve phases:
+thirteen phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -168,13 +168,29 @@ twelve phases:
    of ``a + a`` against ``tt_round_fixed`` (f64 at eps 1e-6: the same
    kept ranks, the norm within 1e-10; both dtypes: the error norm within
    eps), each call's wall and busy share; (d) 12a's params and Adam
-   state written and read back bit for bit.
+   state written and read back bit for bit;
+13. the train-sharded solvers (``parallel.als``, ``parallel.eigen``,
+   ``parallel.evolve``) in a one-rank NCCL group on a (1, 1) mesh, TF32
+   off, each leg at a phase-8 or phase-9 configuration and at its full
+   width, against the fused single-device solver at the same knobs in
+   the same call: (a) ``als_solve_sharded`` at 8a (K=22, f64 and f32)
+   and ``als_solve_adaptive_sharded`` at 8e (3 bits an axis, enriched
+   and padded); (b) ``als_eigsh_sharded`` at 8c (K=14, rank 64, f32,
+   Lanczos locals, 2 sweeps) and ``als_eigsh_k_sharded`` at 8d (k=3,
+   f64); (c) ``evolve_tdvp_sharded`` at 9b and ``evolve_tdvp2_sharded``
+   at 9c (3 steps), ``evolve_theta_sharded`` at 9d (2 steps).  Each
+   leg's ms a sweep or a step both ways (CUDA events) and their
+   difference, busy share, host syncs by kind, the layer's all-reduces,
+   broadcasts and hops, peak memory both ways, and every bar: phases
+   8-9's, and the sharded run against the fused one (1e-9 relative in
+   f64, 1e-4 in f32; the same two-site ranks).
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
 one with phase 10's (``slice12``), one for each leg of phase 11
-(``search_11a``, ``search_11b``, ``search_11c``) and of phase 12
-(``parallel_12a`` to ``parallel_12d``), one with per-kernel results,
+(``search_11a``, ``search_11b``, ``search_11c``), of phase 12
+(``parallel_12a`` to ``parallel_12d``) and of phase 13
+(``parallel_solvers_13a_...`` and so on), one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -4016,6 +4032,288 @@ def phase_parallel(zp, ev, dev):
     return launches
 
 
+# -- phase 13: the train-sharded solvers on one card ------------------------------
+
+#: 13's bars between the sharded and the fused run, relative: histories
+#: or norms elementwise and the represented tensors
+PAR_SOLVER_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+#: 13's cuts against phases 8 and 9 (widths as there): 8c's eigsh 2
+#: sweeps (phase 8 runs 5 and 8), 9b's and 9c's 3 steps (phase 9 times
+#: 10 chained), 9d 2 steps (10 there)
+PAR_R64_SWEEPS, PAR_STEPS_9BC, PAR_STEPS_9D = 2, 3, 2
+
+
+def _par_collectives(pm):
+    return {"all_reduce": pm.all_reduce.calls, "broadcast": pm.broadcast.calls,
+            "hop": pm.hop.calls}
+
+
+def _par_timed(call):
+    """One call: its CUDA-event ms and the peak of allocated memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = call()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), torch.cuda.max_memory_allocated()
+
+
+def _par_pair(pm, zp, ev, sharded, fused, units):
+    """A leg's two runs: the sharded call (CUDA events, peak memory, the
+    layer's collectives, H1/H2 launches, then a profiled repeat counting
+    host syncs by kind) and the fused single-device call at the same
+    knobs (CUDA events, peak memory).  ``units(out)`` is the sweeps or
+    steps a run made."""
+    from tensor_networks_tpu_torch.syncs import host_syncs
+
+    for c in (pm.all_reduce, pm.broadcast, pm.hop):
+        c.calls = 0
+    _reset_counts(zp, ev)
+    out, ms, mem = _par_timed(sharded)
+    launches = _counts(zp, ev)
+    coll = _par_collectives(pm)
+    (syncs, _), busy, kernels, top = _device_profile(lambda: host_syncs(sharded))
+    _reset_counts(zp, ev)
+    fout, fms, fmem = _par_timed(fused)
+    launches_fused = _counts(zp, ev)
+    n = units(out) or max(syncs.get("stop test", 0), 1)  # None: the stop tests counted
+    nf = units(fout) or n
+    return {"out": out, "fused_out": fout, "units": n, "fused_units": nf,
+            "ms": ms / n, "fused_ms": fms / nf, "overhead_ms": ms / n - fms / nf,
+            "busy_share": busy / ms, "kernels": kernels, "top": top,
+            "syncs_per_unit": {k: v / n for k, v in syncs.items()},
+            "collectives_per_unit": {k: v / n for k, v in coll.items()},
+            "peak_mb": mem / 2**20, "fused_peak_mb": fmem / 2**20,
+            "launches": launches, "launches_fused": launches_fused}
+
+
+def _rel_dense(x, y):
+    """Relative distance of two trains in f64: the backward-stable norm
+    (``packed.norm_exact``) of their difference train over ``y``'s."""
+    from tensor_networks_tpu_torch import packed
+
+    x, y = (packed.PackedTT(*(t.double() for t in z)) for z in (x, y))
+    return float(packed.norm_exact(packed.add(x, packed.scale(y, -1.0)))
+                 / packed.norm_exact(y))
+
+
+def _rel_seq(a, b, floor=1e-300):
+    """The largest relative difference of two records, each value's
+    scale at least ``floor`` (a residual at roundoff is compared to the
+    roundoff of the norm it was taken from)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), floor))) if a.size else 0.0
+
+
+def _par_check(name, row, bars):
+    """Every (what, value, bar) of a run, kept on its row with the ones
+    that failed (NaN fails: ``not x <= bar``); the phase raises after
+    printing the leg."""
+    row["bars"] = {what: [got, bar] for what, got, bar in bars}
+    row["failed"] = [f"{name}: {what} {got:.3e} above {bar:.3e}"
+                     for what, got, bar in bars if not got <= bar]
+
+
+def _par_als_legs(tnt, par, mesh, pm, zp, ev, pts):
+    """13a: als_solve_sharded at 8a (K=22, pad_rank(rhs, 8), spd, f64 and
+    f32) and als_solve_adaptive_sharded at 8e (3 bits an axis, enriched
+    and padded), each against its fused solver."""
+    from tensor_networks_tpu_torch import packed
+
+    rows = {}
+    K = 22
+    u_ref = _banded_solution(K, QTT_DELTA, QTT_C)
+    rhs_norm = float(packed.norm_exact(tnt.qtt_exponential(K, c=QTT_C, device="cpu")))
+    for name, dtype, rel_bar, err_bar in ALS22_RUNS:
+        op = tnt.qtt_screened_laplacian(K, delta=QTT_DELTA, dtype=dtype)
+        rhs = tnt.qtt_exponential(K, c=QTT_C, dtype=dtype)
+        x0 = packed.pad_rank(rhs, 8)
+        kw = dict(sweeps=8, tol=0.1 * rel_bar * rhs_norm, spd=True)
+        row = _par_pair(pm, zp, ev, lambda: par.als_solve_sharded(mesh, op, rhs, x0, **kw),
+                        lambda: tnt.als_solve(op, rhs, x0, **kw), lambda out: len(out[2]))
+        (x, res, hist), (xf, _, histf) = row.pop("out"), row.pop("fused_out")
+        row["err"], _, row["launches_check"] = _grid_error(zp, ev, x, u_ref, pts, K)
+        tol = PAR_SOLVER_TOL[dtype]
+        _par_check(f"13a K=22 {name}", row, [
+            ("relative residual", res / rhs_norm, rel_bar),
+            ("error against the banded solve", row["err"], err_bar),
+            ("history against the fused",
+             _rel_seq(hist, histf, 100 * torch.finfo(dtype).eps * rhs_norm), tol),
+            ("state against the fused", _rel_dense(x, xf), tol)])
+        rows[f"als22_{name}"] = row
+    bits, bars = ADAPTIVE_RUNS[0]
+    op = tnt.qtt_screened_laplacian_nd(bits, 3, delta=1.0)
+    rhs = tnt.qtt_exponential_nd(bits, (2.0, 3.0, 1.5))
+    rhs_norm = float(packed.norm_exact(tnt.qtt_exponential_nd(bits, (2.0, 3.0, 1.5),
+                                                             device="cpu")))
+    for enrich in (True, False):
+        key = "enrich" if enrich else "pad"
+        kw = dict(eps=1e-10, rank=2, max_rank=16, sweeps_per_rank=2, enrich=enrich)
+        row = _par_pair(pm, zp, ev, lambda: par.als_solve_adaptive_sharded(mesh, op, rhs, **kw),
+                        lambda: tnt.als_solve_adaptive(op, rhs, **kw), lambda out: len(out[2]))
+        (x, res, hist), (xf, _, _) = row.pop("out"), row.pop("fused_out")
+        row["rank"] = x.rank
+        _par_check(f"13a 8e {bits} bits {key}", row, [
+            ("relative residual", res / rhs_norm, bars[key]),
+            ("rank against the fused", abs(x.rank - xf.rank), 0),
+            ("state against the fused", _rel_dense(x, xf), PAR_SOLVER_TOL[torch.float64])])
+        rows[f"adaptive_{bits}bit_{key}"] = row
+    return rows
+
+
+def _par_eig_legs(tnt, par, mesh, pm, zp, ev):
+    """13b: als_eigsh_sharded at 8c (K=14, rank 64, f32, Lanczos locals of
+    8192 unknowns, PAR_R64_SWEEPS sweeps) and als_eigsh_k_sharded at 8d
+    (k=3, K=14, f64), each against its fused solver."""
+    from tensor_networks_tpu_torch import packed
+
+    rows = {}
+    f32 = torch.float32
+    op = tnt.qtt_screened_laplacian(R64_K, delta=1.0, dtype=f32)
+    x0 = packed.pad_rank(tnt.qtt_exponential(R64_K, c=3.0, dtype=f32), R64_RANK)
+    kw = dict(sweeps=PAR_R64_SWEEPS, tol=-1.0, lanczos_iters=R64_ITERS)
+    row = _par_pair(pm, zp, ev, lambda: par.als_eigsh_sharded(mesh, op, x0, **kw),
+                    lambda: tnt.als_eigsh(op, x0, **kw), lambda out: len(out[2]) // 2)
+    (x, lam, hist), (xf, _, histf) = row.pop("out"), row.pop("fused_out")
+    op_cpu = tnt.qtt_screened_laplacian(R64_K, delta=1.0, device="cpu")
+    exact = 1.0 + 2 - 2 * math.cos(math.pi / (2**R64_K + 1))
+    start = _recomputed_rayleigh(tnt, op_cpu, x0) - exact
+    row.update(lam=lam, err=abs(lam - exact), start_err=start,
+               recomputed=_recomputed_rayleigh(tnt, op_cpu, x) - exact)
+    # 8c's bar of 1e-5 is for 8 sweeps (the card ends 2 at 2.2e-5): the
+    # 2-sweep cut is held below the start's own quotient, as 8c also is
+    _par_check("13b 8c eigsh", row, [
+        ("|lam - exact| (below the start's)", row["err"], start),
+        ("recomputed Rayleigh quotient - exact", abs(row["recomputed"]), start),
+        ("history against the fused", _rel_seq(hist, histf), PAR_SOLVER_TOL[f32]),
+        ("state against the fused", _rel_dense(x, xf), PAR_SOLVER_TOL[f32])])
+    rows["eigsh_r64_f32"] = row
+
+    K, delta = 14, 0.3
+    op = tnt.qtt_screened_laplacian(K, delta=delta)
+    x0 = packed.pad_rank(tnt.qtt_exponential(K, c=2.0), 8)
+    # a unit is one sweep of the three solves, counted by their stop tests
+    row = _par_pair(pm, zp, ev, lambda: par.als_eigsh_k_sharded(mesh, op, x0, 3),
+                    lambda: tnt.als_eigsh_k(op, x0, 3), lambda out: None)
+    (vecs, vals), (vecsf, valsf) = row.pop("out"), row.pop("fused_out")
+    exact = [delta + 2 - 2 * math.cos(j * math.pi / (2**K + 1)) for j in (1, 2, 3)]
+    row["rel_err"] = [abs(v - e) / e for v, e in zip(vals, exact)]
+    _par_check("13b 8d eigsh_k", row, [
+        ("eigenvalues against the exact", max(row["rel_err"]), EIGK_BAR),
+        ("values against the fused", _rel_seq(vals, valsf), PAR_SOLVER_TOL[torch.float64]),
+        ("states against the fused", max(min(_rel_dense(v, w), _rel_dense(_neg(v), w))
+                                         for v, w in zip(vecs, vecsf)),
+         PAR_SOLVER_TOL[torch.float64])])
+    rows["eigsh_k_f64"] = row
+    return rows
+
+
+def _neg(x):
+    return type(x)(-x.first, x.mids, x.last)
+
+
+def _par_evolve_legs(tnt, par, mesh, pm, zp, ev):
+    """13c: evolve_tdvp_sharded at 9b (K=22, rank 8, f32), evolve_tdvp2_sharded
+    at 9c (K=16) and evolve_theta_sharded at 9d (Crank-Nicolson, K=12, f64),
+    each against its fused integrator."""
+    from solver_witness import cn_reference
+    from tensor_networks_tpu_torch import packed
+
+    rows = {}
+    f32 = torch.float32
+    for key, K, two_site in (("tdvp_f32", 22, False), ("tdvp2_f32", 16, True)):
+        A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0, dtype=f32)
+        u0 = packed.pad_rank(tnt.qtt_exponential(K, c=3.0, dtype=f32), PROBE_RANK)
+        if two_site:
+            kw = dict(eps=1e-6, dense_limit=1024)
+            sharded = lambda: par.evolve_tdvp2_sharded(mesh, A, u0, PROBE_DT, PAR_STEPS_9BC, **kw)
+            fused = lambda: tnt.evolve_tdvp2(A, u0, PROBE_DT, PAR_STEPS_9BC, **kw)
+        else:
+            sharded = lambda: par.evolve_tdvp_sharded(mesh, A, u0, PROBE_DT, PAR_STEPS_9BC)
+            fused = lambda: tnt.evolve_tdvp(A, u0, PROBE_DT, PAR_STEPS_9BC)
+        row = _par_pair(pm, zp, ev, sharded, fused, lambda out: len(out[1]))
+        out, fout = row.pop("out"), row.pop("fused_out")
+        row["norms"] = out[1]
+        bars = [("norms against the fused", _rel_seq(out[1], fout[1]), PAR_SOLVER_TOL[f32]),
+                ("state against the fused", _rel_dense(out[0], fout[0]), PAR_SOLVER_TOL[f32]),
+                ("finite norms", 0 if all(math.isfinite(v) for v in out[1]) else 1, 0)]
+        if two_site:
+            row["ranks"] = out[2]
+            bars.append(("ranks against the fused", int(out[2] != fout[2]), 0))
+        _par_check(f"13c {key}", row, bars)
+        rows[key] = row
+
+    K, dt = 12, 0.02
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0)
+    u0 = packed.pad_rank(tnt.qtt_exponential(K, c=3.0), 8)
+    row = _par_pair(
+        pm, zp, ev,
+        lambda: par.evolve_theta_sharded(mesh, A, u0, dt, PAR_STEPS_9D, theta=0.5, spd=True),
+        lambda: tnt.evolve_theta(A, u0, dt, PAR_STEPS_9D, theta=0.5, spd=True),
+        lambda out: len(out[1]))
+    (u, res), (uf, _) = row.pop("out"), row.pop("fused_out")
+    x_ref, _ = cn_reference(K, dt, PAR_STEPS_9D)
+    row["err"], row["resid"] = _rel2(_grid_vector(u), x_ref), max(res)
+    _par_check("13c theta", row, [
+        ("state against the discrete solution", row["err"], EVOLVE_BARS["9d_state"]),
+        ("state against the fused", _rel_dense(u, uf), PAR_SOLVER_TOL[torch.float64])])
+    rows["theta_cn_f64"] = row
+    return rows
+
+
+def phase_parallel_solvers(zp, ev, dev):
+    """Phase 13 (13a-13c): the train-sharded solvers in a one-rank NCCL
+    group on a (1, 1) mesh, TF32 off, each leg at a phase-8 or phase-9
+    configuration against the fused solver in the same call; one JSON
+    line a leg.  Returns H1's and H2's launches in each run."""
+    import torch.distributed as dist
+
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import parallel as par
+    from tensor_networks_tpu_torch.parallel import mesh as pm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 13 runs with TF32 off")
+    print("phase 13 the train-sharded solvers on one card (a one-rank NCCL group):")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = par.make_mesh((1, 1))
+    pts = np.random.default_rng(SEED + 130).integers(0, 2**22, B)
+    launches, failed = {}, []
+    for leg, legs in (("13a", lambda: _par_als_legs(tnt, par, mesh, pm, zp, ev, pts)),
+                      ("13b", lambda: _par_eig_legs(tnt, par, mesh, pm, zp, ev)),
+                      ("13c", lambda: _par_evolve_legs(tnt, par, mesh, pm, zp, ev))):
+        for key, r in legs().items():
+            failed += r["failed"]
+            launches[f"{leg}_{key}"] = r["launches"]
+            launches[f"{leg}_{key}_fused"] = r["launches_fused"]
+            if "launches_check" in r:
+                launches[f"{leg}_{key}_check"] = r["launches_check"]
+            print(f"  {leg} {key}: {r['units']} sweeps or steps; {r['ms']:.2f} ms each sharded, "
+                  f"{r['fused_ms']:.2f} fused ({r['fused_units']}; overhead "
+                  f"{r['overhead_ms']:+.2f} ms); busy {100 * r['busy_share']:.0f}% over "
+                  f"{r['kernels']} kernels; syncs each {r['syncs_per_unit']}; collectives each "
+                  f"{r['collectives_per_unit']}; peak {r['peak_mb']:.1f} MB sharded, "
+                  f"{r['fused_peak_mb']:.1f} fused; bars {r['bars']}; top "
+                  f"{[(n, round(ms, 2), c) for n, ms, c in r['top']]}")
+            line = {f: r[f] for f in ("units", "ms", "fused_ms", "overhead_ms", "busy_share",
+                                      "kernels", "syncs_per_unit", "collectives_per_unit",
+                                      "peak_mb", "fused_peak_mb", "bars")}
+            print(json.dumps({f"parallel_solvers_{leg}_{key}": _sig(line)},
+                             separators=(",", ":")))
+    dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    print(f"  phase 13 wall {wall:.1f} s")
+    if failed:
+        raise AssertionError("phase 13 " + "; ".join(failed))
+    return launches
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -4116,6 +4414,7 @@ def main() -> int:
     _, slice_launches = phase_slice12(zp, ev, main_train[0], pb, *main_train[1:3])
     slice_launches["search"] = phase_search(zp, ev, dev)
     slice_launches["parallel"] = phase_parallel(zp, ev, dev)
+    slice_launches["parallel_solvers"] = phase_parallel_solvers(zp, ev, dev)
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

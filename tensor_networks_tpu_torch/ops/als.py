@@ -234,16 +234,70 @@ def _read_stop(flag) -> bool:
 
 
 # -- fused sweep ----------------------------------------------------------------
-# One sweep over stacked cores: boundary cores explicit, mid cores a
-# Python loop, with the host loop's arithmetic call for call.  The JAX
-# package's single-program sweep recomputes the right env chains at its
-# top; here each sweep hands the chains its backward half recorded to
-# the next (the same calls on the same cores: equal values, and the
-# host loop's order).  On structurally full-rank trains the two paths
-# agree to roundoff; on
-# PADDED trains the cores are rank-deficient, the QR null-space gauge is
-# arbitrary, and the paths converge equally well without being
-# comparable core by core.
+# One sweep over stacked cores: boundary cores explicit, mid cores run
+# through the JAX package's scan bodies (module-level functions, so the
+# train-sharded sweep, ``parallel/als.py``, runs the same arithmetic),
+# with the host loop's arithmetic call for call.  The JAX package's
+# single-program sweep recomputes the right env chains at its top; here
+# each sweep hands the chains its backward half recorded to the next
+# (the same calls on the same cores: equal values, and the host loop's
+# order).  On structurally full-rank trains the two paths agree to
+# roundoff; on PADDED trains the cores are rank-deficient, the QR
+# null-space gauge is arbitrary, and the paths converge equally well
+# without being comparable core by core.
+
+
+def _scan(body, carry, xs, reverse=False):
+    """``jax.lax.scan`` as a Python loop: ``body(carry, x) -> (carry, y)``
+    over the leading axis of every sequence in ``xs`` (back to front with
+    ``reverse``); the ys come back as a list in sequence order."""
+    steps = range(len(xs[0]))
+    ys = [None] * len(steps)
+    for j in (reversed(steps) if reverse else steps):
+        carry, ys[j] = body(carry, tuple(x[j] for x in xs))
+    return carry, ys
+
+
+def _columns(ys):
+    """A scan's per-step tuples as one list per field."""
+    return tuple(list(c) for c in zip(*ys))
+
+
+def _als_renv_body(carry, inp):
+    """Right-env body (operator + rhs chains), emitting the PRE-absorb
+    envs: entry j is what mid j consumes."""
+    R, Rb = carry
+    xk, ak, bk = inp
+    return (_adv_right(R, xk, ak), _adv_right_b(Rb, xk, bk)), (R, Rb)
+
+
+def _als_fwd_body_of(lam, dense_limit, cg_iters, spd):
+    """Forward mid-core half-sweep body.  Emits (orthogonal core,
+    PRE-update operator and rhs left envs: the return half's inputs)."""
+
+    def fwd(carry, inp):
+        L, Lb = carry
+        xk, ak, bk, Rk, Rbk, wk = inp
+        qk = _left_orth(_solve_core(L, Rk, Lb, Rbk, ak, bk, xk, lam, dense_limit,
+                                    cg_iters, spd, wk))
+        return (_adv_left(L, qk, ak), _adv_left_b(Lb, qk, bk)), (qk, L, Lb)
+
+    return fwd
+
+
+def _als_bwd_body_of(lam, dense_limit, cg_iters, spd):
+    """Backward mid-core half-sweep body (mirror of the forward one).
+    Emits (orthogonal core, PRE-absorb right envs: the next sweep's
+    chains)."""
+
+    def bwd(carry, inp):
+        R, Rb = carry
+        qk, ak, bk, Lk, Lbk, wk = inp
+        vk = _right_orth(_solve_core(Lk, R, Lbk, Rb, ak, bk, qk, lam, dense_limit,
+                                     cg_iters, spd, wk))
+        return (_adv_right(R, vk, ak), _adv_right_b(Rb, vk, bk)), (vk, R, Rb)
+
+    return bwd
 
 
 def _als_sweep_impl(x0c, X, xlc, a0, Am, al, b0, Bm, bl, lam,
@@ -260,7 +314,6 @@ def _als_sweep_impl(x0c, X, xlc, a0, Am, al, b0, Bm, bl, lam,
     """
     dt, dev = x0c.dtype, x0c.device
     one3, one2 = _ones(dt, dev, 1, 1, 1), _ones(dt, dev, 1, 1)
-    m = X.shape[0]
 
     def solve(L, R, Lb, Rb, ak, bk, vk, warm):
         return _solve_core(L, R, Lb, Rb, ak, bk, vk, lam, dense_limit,
@@ -269,39 +322,29 @@ def _als_sweep_impl(x0c, X, xlc, a0, Am, al, b0, Bm, bl, lam,
     # right-env chains of the current cores, pre-absorb: entry j is
     # what mid j consumes (env of cores j+2..d-1); R, Rb the front's
     if renvs is None:
-        rs_mid, rbs_mid = [None] * m, [None] * m
-        R, Rb = _adv_right(one3, xlc, al), _adv_right_b(one2, xlc, bl)
-        for j in range(m - 1, -1, -1):
-            rs_mid[j], rbs_mid[j] = R, Rb
-            R, Rb = _adv_right(R, X[j], Am[j]), _adv_right_b(Rb, X[j], Bm[j])
+        (R, Rb), ys = _scan(_als_renv_body, (_adv_right(one3, xlc, al),
+                                             _adv_right_b(one2, xlc, bl)),
+                            (X, Am, Bm), reverse=True)
+        rs_mid, rbs_mid = _columns(ys)
     else:
         rs_mid, rbs_mid, R, Rb = renvs
 
     # left -> right half
     q0 = _left_orth(solve(one3, R, one2, Rb, a0, b0, x0c, warm_first))
-    L, Lb = _adv_left(one3, q0, a0), _adv_left_b(one2, q0, b0)
-    Q, ls_mid, lbs_mid = [], [], []
-    for j in range(m):
-        qk = _left_orth(solve(L, rs_mid[j], Lb, rbs_mid[j], Am[j], Bm[j],
-                              X[j], warm_mid[j]))
-        Q.append(qk)
-        ls_mid.append(L)
-        lbs_mid.append(Lb)
-        L, Lb = _adv_left(L, qk, Am[j]), _adv_left_b(Lb, qk, Bm[j])
+    (L, Lb), ys = _scan(_als_fwd_body_of(lam, dense_limit, cg_iters, spd),
+                        (_adv_left(one3, q0, a0), _adv_left_b(one2, q0, b0)),
+                        (X, Am, Bm, rs_mid, rbs_mid, warm_mid))
+    Q, ls_mid, lbs_mid = _columns(ys)
 
     # last core: solved by the forward half (no orth), then again
     # first thing in the return half -- the host loop's exact order
     zl = solve(L, one3, Lb, one2, al, bl, xlc, warm_last)
     zl = solve(L, one3, Lb, one2, al, bl, zl, warm_last)
     vl = _right_orth(zl)
-    R, Rb = _adv_right(one3, vl, al), _adv_right_b(one2, vl, bl)
-
-    V = [None] * m
-    for j in range(m - 1, -1, -1):
-        rs_mid[j], rbs_mid[j] = R, Rb
-        V[j] = _right_orth(solve(ls_mid[j], R, lbs_mid[j], Rb, Am[j], Bm[j],
-                                 Q[j], warm_mid[j]))
-        R, Rb = _adv_right(R, V[j], Am[j]), _adv_right_b(Rb, V[j], Bm[j])
+    (R, Rb), ys = _scan(_als_bwd_body_of(lam, dense_limit, cg_iters, spd),
+                        (_adv_right(one3, vl, al), _adv_right_b(one2, vl, bl)),
+                        (Q, Am, Bm, ls_mid, lbs_mid, warm_mid), reverse=True)
+    V, rs_mid, rbs_mid = _columns(ys)
 
     z0 = solve(one3, R, one2, Rb, a0, b0, q0, warm_first)
     return z0, torch.stack(V), vl, (rs_mid, rbs_mid, R, Rb)
@@ -397,6 +440,16 @@ def _canonicalize(xs):
         xs[k - 1] = torch.einsum("anb,cb->anc", xs[k - 1], rmat)
 
 
+def _warm_gates(d: int, n: int, r: int) -> List[bool]:
+    """The CG warm-start gate of each core of a uniform train (see
+    :func:`_solve_core`): structural nonsingularity of its local system,
+    the bond ranks on both sides within the mode products there."""
+    ranks_l = [1] + [r] * (d - 1)
+    ranks_r = [r] * (d - 1) + [1]
+    return [ranks_l[k] <= min(n ** k, 1 << 40) and ranks_r[k] <= min(n ** (d - 1 - k), 1 << 40)
+            for k in range(d)]
+
+
 def als_solve(
     op: PackedTTOp,
     rhs: PackedTT,
@@ -446,21 +499,7 @@ def als_solve(
     d = len(xs)
     _canonicalize(xs)
 
-    # structural nonsingularity of each local system (CG warm-start
-    # gate, see _solve_core): bond ranks within the mode products on
-    # both sides of the core
-    caps_l, cap = [], 1
-    for k in range(d):
-        caps_l.append(cap)
-        cap = min(cap * xs[k].shape[1], 1 << 40)
-    caps_r, cap = [0] * d, 1
-    for k in range(d - 1, -1, -1):
-        caps_r[k] = cap
-        cap = min(cap * xs[k].shape[1], 1 << 40)
-    warm_ok = [
-        xs[k].shape[0] <= caps_l[k] and xs[k].shape[2] <= caps_r[k]
-        for k in range(d)
-    ]
+    warm_ok = _warm_gates(d, x0.mode, x0.rank)
 
     one3, one2 = _ones(dt, dev, 1, 1, 1), _ones(dt, dev, 1, 1)
     history: List[float] = []

@@ -38,6 +38,7 @@ from tensor_networks_tpu_torch.ops.als import (
     _adv_right,
     _adv_right_b,
     _canonicalize,
+    _columns,
     _core_lists,
     _enrich_span,
     _left_orth,
@@ -48,6 +49,7 @@ from tensor_networks_tpu_torch.ops.als import (
     _packed_of,
     _read_stop,
     _right_orth,
+    _scan,
 )
 from tensor_networks_tpu_torch.ops.packed import (
     PackedTT,
@@ -290,17 +292,28 @@ def _local_ground_state_mass(L, ak, R, Lm, mk, Rm, pens, shift):
     return w[0], W @ y[:, 0]
 
 
-def _carry_right(vec, q, nxt):
-    """``nxt`` times the factor ``q^T vec`` that left-orthogonalizing
-    ``vec`` into ``q`` leaves behind: the train is then the one the
-    sweep holds, and the next Lanczos local starts from it."""
-    return torch.einsum("bc,cks->bks", torch.einsum("ajb,ajc->bc", q, vec), nxt)
+def _fac_right(vec, q):
+    """The factor ``q^T vec`` that left-orthogonalizing ``vec`` into ``q``
+    leaves behind, to be carried into the next core."""
+    return torch.einsum("ajb,ajc->bc", q, vec)
 
 
-def _carry_left(prev, vec, q):
-    """Mirror of :func:`_carry_right` for right-orthogonalization:
-    ``prev`` times ``vec q^T``."""
-    return torch.einsum("sia,ab->sib", prev, torch.einsum("ajc,bjc->ab", vec, q))
+def _into_right(fac, nxt):
+    """``nxt`` times a factor carried from its left neighbour: the train
+    is then the one the sweep holds, and the next Lanczos local starts
+    from it."""
+    return torch.einsum("bc,cks->bks", fac, nxt)
+
+
+def _fac_left(vec, q):
+    """Mirror of :func:`_fac_right` for right-orthogonalization:
+    ``vec q^T``."""
+    return torch.einsum("ajc,bjc->ab", vec, q)
+
+
+def _into_left(prev, fac):
+    """Mirror of :func:`_into_right`: ``prev`` times the factor."""
+    return torch.einsum("sia,ab->sib", prev, fac)
 
 
 # -- fused sweep ----------------------------------------------------------------
@@ -314,12 +327,15 @@ def _carry_left(prev, vec, q):
 # trains the local eigenbases match the host loop only up to whitener
 # gauge; the contract is identical Rayleigh descent on full-rank trains
 # and equal convergence otherwise.  Each orthogonalization's factor is
-# carried into the next core (_carry_right, _carry_left) before that
+# carried into the next core (_fac_right, _fac_left) before that
 # core's local solve, so a Lanczos local warm-starts from the iterate the
 # sweep holds and its Ritz value cannot rise above the iterate's
-# Rayleigh quotient.  The JAX package warm-starts from the core as it
-# was before the factor moved: at K=14 rank 64 in f32 with 48 steps its
-# energy after a sweep ended above the start's (ROADMAP.md section 3).
+# Rayleigh quotient.  The (r x r) factor rides the sweep's carry and the
+# core's owner applies it, so a train-sharded sweep
+# (``parallel/eigen.py``) runs the same einsums on the same operands.
+# The JAX package warm-starts from the core as it was before the factor
+# moved: at K=14 rank 64 in f32 with 48 steps its energy after a sweep
+# ended above the start's (ROADMAP.md section 3).
 
 
 class _EigHelpers:
@@ -383,6 +399,29 @@ class _EigHelpers:
             out = _local_rhs(Lb, vk, Rb)
         return out.reshape(out.shape[0], -1)
 
+    @property
+    def n_cores(self) -> int:
+        return 1 + self.use_mass + self.use_pen
+
+    def envs(self, E, Eg, Eb):
+        """A chain's carry: the operator and metric envs, then the
+        penalty env only when deflating (an absent env is not carried)."""
+        return (E, Eg, Eb) if self.use_pen else (E, Eg)
+
+    def unenvs(self, t):
+        return t[0], t[1], (t[2] if self.use_pen else None)
+
+    def cores(self, ak, mk, vk):
+        """A position's operator core, then its mass core and its stacked
+        deflation cores when those are on."""
+        return (ak,) + ((mk,) if self.use_mass else ()) + ((vk,) if self.use_pen else ())
+
+    def uncores(self, t):
+        ak, rest = t[0], list(t[1:])
+        mk = rest.pop(0) if self.use_mass else None
+        vk = rest.pop(0) if self.use_pen else None
+        return ak, mk, vk
+
     def solve(self, L, R, Lg, Rg, ak, mk, pens, shift, warm=None):
         if self.use_mass:
             # the mass metric keeps the dense local path (its whitening
@@ -395,6 +434,66 @@ class _EigHelpers:
                 L, ak, R, Lg, Rg, pens, shift, self.lanczos_iters, warm=warm,
             )
         return _local_ground_state(L, ak, R, Lg, Rg, pens, shift)
+
+
+def _eig_renv_body_of(h: _EigHelpers):
+    """Right-env body (operator, metric and penalty chains), emitting the
+    PRE-absorb envs: entry j is what mid j consumes.  Inputs: the core,
+    then :meth:`_EigHelpers.cores`."""
+
+    def renv(carry, inp):
+        R, Rg, Rb = h.unenvs(carry)
+        xk = inp[0]
+        ak, mk, vk = h.uncores(inp[1:])
+        return h.envs(_adv_right(R, xk, ak), h.g_adv_r(Rg, xk, mk),
+                      h.p_adv_r(Rb, xk, mk, vk)), carry
+
+    return renv
+
+
+def _eig_fwd_body_of(h: _EigHelpers, shift):
+    """Forward mid-core half-sweep body.  Carry: (the factor left behind
+    by the previous core's orthogonalization, the left envs).  Inputs:
+    the core, its operator/mass/deflation cores, its right envs.  Emits
+    (orthogonal core, PRE-update left envs: the return half's inputs)."""
+
+    def fwd(carry, inp):
+        fac, envs = carry[0], carry[1:]
+        L, Lg, Lb = h.unenvs(envs)
+        xk = inp[0]
+        ak, mk, vk = h.uncores(inp[1:1 + h.n_cores])
+        Rk, Rgk, Rbk = h.unenvs(inp[1 + h.n_cores:])
+        warm = _into_right(fac, xk)
+        pens = h.pens_of(Lb, Rbk, mk, vk, xk.numel())
+        _, vec = h.solve(L, Rk, Lg, Rgk, ak, mk, pens, shift, warm=warm)
+        vec = vec.reshape(xk.shape)
+        qk = _left_orth(vec)
+        nxt = h.envs(_adv_left(L, qk, ak), h.g_adv_l(Lg, qk, mk), h.p_adv_l(Lb, qk, mk, vk))
+        return (_fac_right(vec, qk),) + nxt, (qk,) + envs
+
+    return fwd
+
+
+def _eig_bwd_body_of(h: _EigHelpers, shift):
+    """Backward mid-core half-sweep body (mirror of the forward one).
+    Emits (orthogonal core, PRE-absorb right envs: the next sweep's
+    chains)."""
+
+    def bwd(carry, inp):
+        fac, envs = carry[0], carry[1:]
+        R, Rg, Rb = h.unenvs(envs)
+        qk = inp[0]
+        ak, mk, vk = h.uncores(inp[1:1 + h.n_cores])
+        Lk, Lgk, Lbk = h.unenvs(inp[1 + h.n_cores:])
+        warm = _into_left(qk, fac)
+        pens = h.pens_of(Lbk, Rb, mk, vk, qk.numel())
+        _, vec = h.solve(Lk, R, Lgk, Rg, ak, mk, pens, shift, warm=warm)
+        vec = vec.reshape(qk.shape)
+        v = _right_orth(vec)
+        nxt = h.envs(_adv_right(R, v, ak), h.g_adv_r(Rg, v, mk), h.p_adv_r(Rb, v, mk, vk))
+        return (_fac_left(vec, v),) + nxt, (v,) + envs
+
+    return bwd
 
 
 def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
@@ -416,51 +515,34 @@ def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
     v0, VM, vl = vstk if use_pen else (None, None, None)
     h = _EigHelpers(use_mass, use_pen, dt, dev, v0.shape[0] if use_pen else 0,
                     dense_limit, lanczos_iters)
-    m = X.shape[0]
-
-    def mk(j):
-        return Mm[j] if use_mass else None
-
-    def vk(j):
-        return VM[j] if use_pen else None
+    cores = h.cores(Am, Mm, VM)
 
     # right-env chains of the current cores, pre-absorb
     if renvs is None:
-        rs_mid, rgs_mid, rbs_mid = [None] * m, [None] * m, [None] * m
-        R = _adv_right(one3, xlc, al)
-        Rg = h.g_adv_r(h.g_seed(), xlc, ml)
-        Rb = h.p_adv_r(h.p_seed(), xlc, ml, vl)
-        for j in range(m - 1, -1, -1):
-            rs_mid[j], rgs_mid[j], rbs_mid[j] = R, Rg, Rb
-            R, Rg, Rb = (_adv_right(R, X[j], Am[j]), h.g_adv_r(Rg, X[j], mk(j)),
-                         h.p_adv_r(Rb, X[j], mk(j), vk(j)))
+        front, ys = _scan(_eig_renv_body_of(h),
+                          h.envs(_adv_right(one3, xlc, al), h.g_adv_r(h.g_seed(), xlc, ml),
+                                 h.p_adv_r(h.p_seed(), xlc, ml, vl)),
+                          (X,) + cores, reverse=True)
+        chains = _columns(ys)
     else:
-        rs_mid, rgs_mid, rbs_mid, (R, Rg, Rb) = renvs
+        chains, front = renvs
 
     # left -> right half
+    R, Rg, Rb = h.unenvs(front)
     pens = h.pens_of(h.p_seed(), Rb, m0, v0, x0c.numel())
     _, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift, warm=x0c)
     vec = vec.reshape(x0c.shape)
     q0 = _left_orth(vec)
-    warm = _carry_right(vec, q0, X[0] if m else xlc)
-    L = _adv_left(one3, q0, a0)
-    Lg = h.g_adv_l(h.g_seed(), q0, m0)
-    Lb = h.p_adv_l(h.p_seed(), q0, m0, v0)
-    Q, ls_mid = [], []
-    for j in range(m):
-        pens = h.pens_of(Lb, rbs_mid[j], mk(j), vk(j), X[j].numel())
-        _, vec = h.solve(L, rs_mid[j], Lg, rgs_mid[j], Am[j], mk(j), pens, shift,
-                         warm=warm)
-        vec = vec.reshape(X[j].shape)
-        qk = _left_orth(vec)
-        warm = _carry_right(vec, qk, X[j + 1] if j + 1 < m else xlc)
-        Q.append(qk)
-        ls_mid.append((L, Lg, Lb))
-        L, Lg, Lb = (_adv_left(L, qk, Am[j]), h.g_adv_l(Lg, qk, mk(j)),
-                     h.p_adv_l(Lb, qk, mk(j), vk(j)))
+    carry = (_fac_right(vec, q0),) + h.envs(
+        _adv_left(one3, q0, a0), h.g_adv_l(h.g_seed(), q0, m0),
+        h.p_adv_l(h.p_seed(), q0, m0, v0))
+    carry, ys = _scan(_eig_fwd_body_of(h, shift), carry, (X,) + cores + chains)
+    Q, *lchains = _columns(ys)
 
+    L, Lg, Lb = h.unenvs(carry[1:])
     pens = h.pens_of(Lb, h.p_seed(), ml, vl, xlc.numel())
-    lam_f, vec = h.solve(L, one3, Lg, h.g_seed(), al, ml, pens, shift, warm=warm)
+    lam_f, vec = h.solve(L, one3, Lg, h.g_seed(), al, ml, pens, shift,
+                         warm=_into_right(carry[0], xlc))
 
     # right -> left half.  The host loop re-solves the last core here,
     # but the eigen local solve does not depend on the current core
@@ -468,26 +550,19 @@ def _eig_sweep_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
     # skipped
     vec = vec.reshape(xlc.shape)
     vlq = _right_orth(vec)
-    warm = _carry_left(Q[-1] if m else q0, vec, vlq)
-    R = _adv_right(one3, vlq, al)
-    Rg = h.g_adv_r(h.g_seed(), vlq, ml)
-    Rb = h.p_adv_r(h.p_seed(), vlq, ml, vl)
-    V = [None] * m
-    for j in range(m - 1, -1, -1):
-        rs_mid[j], rgs_mid[j], rbs_mid[j] = R, Rg, Rb
-        Lk, Lgk, Lbk = ls_mid[j]
-        pens = h.pens_of(Lbk, Rb, mk(j), vk(j), Q[j].numel())
-        _, vec = h.solve(Lk, R, Lgk, Rg, Am[j], mk(j), pens, shift, warm=warm)
-        vec = vec.reshape(Q[j].shape)
-        V[j] = _right_orth(vec)
-        warm = _carry_left(Q[j - 1] if j else q0, vec, V[j])
-        R, Rg, Rb = (_adv_right(R, V[j], Am[j]), h.g_adv_r(Rg, V[j], mk(j)),
-                     h.p_adv_r(Rb, V[j], mk(j), vk(j)))
+    carry = (_fac_left(vec, vlq),) + h.envs(
+        _adv_right(one3, vlq, al), h.g_adv_r(h.g_seed(), vlq, ml),
+        h.p_adv_r(h.p_seed(), vlq, ml, vl))
+    carry, ys = _scan(_eig_bwd_body_of(h, shift), carry, (Q,) + cores + tuple(lchains),
+                      reverse=True)
+    V, *chains = _columns(ys)
 
+    R, Rg, Rb = h.unenvs(carry[1:])
     pens = h.pens_of(h.p_seed(), Rb, m0, v0, q0.numel())
-    lam_b, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift, warm=warm)
+    lam_b, vec = h.solve(one3, R, h.g_seed(), Rg, a0, m0, pens, shift,
+                         warm=_into_left(q0, carry[0]))
     return (vec.reshape(q0.shape), torch.stack(V), vlq, lam_f, lam_b,
-            (rs_mid, rgs_mid, rbs_mid, (R, Rg, Rb)))
+            (tuple(chains), carry[1:]))
 
 
 def _eig_loop_impl(x0c, X, xlc, a0, Am, al, mstk, vstk, shift,
@@ -726,7 +801,7 @@ def als_eigsh(
             xs[k] = vec = vec.reshape(xs[k].shape)
             if k < d - 1:
                 xs[k] = _left_orth(vec)
-                xs[k + 1] = _carry_right(vec, xs[k], xs[k + 1])
+                xs[k + 1] = _into_right(_fac_right(vec, xs[k]), xs[k + 1])
                 ls.append(_adv_left(ls[-1], xs[k], as_[k]))
                 lgs.append(metric_adv_l(lgs[-1], k))
                 for j in range(len(vs)):
@@ -745,7 +820,7 @@ def als_eigsh(
             xs[k] = vec = vec.reshape(xs[k].shape)
             if k > 0:
                 xs[k] = _right_orth(vec)
-                xs[k - 1] = _carry_left(xs[k - 1], vec, xs[k])
+                xs[k - 1] = _into_left(xs[k - 1], _fac_left(vec, xs[k]))
                 rev_rs.append(_adv_right(rev_rs[-1], xs[k], as_[k]))
                 rev_rgs.append(metric_adv_r(rev_rgs[-1], k))
                 for j in range(len(vs)):

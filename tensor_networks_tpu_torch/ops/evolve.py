@@ -62,6 +62,7 @@ from tensor_networks_tpu_torch.ops.als import (
     _local_dense,
     _matvec,
     _packed_of,
+    _scan,
     als_solve,
 )
 from tensor_networks_tpu_torch.ops.packed import (
@@ -256,7 +257,13 @@ def _op_norm_bound(A: PackedTTOp) -> float:
 def _squarings(A: PackedTTOp, coef: float, local: int, dense_limit: int,
                kdim: int) -> int:
     """The squarings :func:`_expm` needs for every local exponential of
-    one trajectory, from one host read (:func:`_op_norm_bound`).
+    one trajectory, from one host read (:func:`_op_norm_bound`)."""
+    return _squarings_for(_op_norm_bound(A), coef, local, dense_limit, kdim)
+
+
+def _squarings_for(norm_bound: float, coef: float, local: int, dense_limit: int,
+                   kdim: int) -> int:
+    """:func:`_squarings` from a bound on ``|A|_2``.
 
     A local operator is ``H = P^T A P`` with a frame of norm at most 1
     (orthonormal or zero-padded cores), so ``|coef H|_1 <= sqrt(m)
@@ -264,7 +271,7 @@ def _squarings(A: PackedTTOp, coef: float, local: int, dense_limit: int,
     block) below ``dense_limit``, else the ``kdim x kdim`` Lanczos
     tridiagonal.  One more squaring covers the frames' roundoff."""
     m = max(min(local, dense_limit), kdim)
-    bound = abs(coef) * math.sqrt(m) * _op_norm_bound(A)
+    bound = abs(coef) * math.sqrt(m) * norm_bound
     if not bound > _THETA:  # also 0 and NaN: the clamp keeps s at 0
         return 1
     return math.ceil(math.log2(bound / _THETA)) + 1
@@ -423,16 +430,6 @@ def _step_size(dt, like) -> torch.Tensor:
     if isinstance(dt, torch.Tensor):
         return dt.to(dtype=like.dtype, device=like.device)
     return torch.full((), float(dt), dtype=like.dtype, device=like.device)
-
-
-def _scan(body, carry, seqs):
-    """``jax.lax.scan`` as a Python loop over equal-length sequences:
-    the body's per-step outputs come back as a list."""
-    outs = []
-    for inp in zip(*seqs):
-        carry, out = body(carry, inp)
-        outs.append(out)
-    return carry, outs
 
 
 def evolve_tdvp(

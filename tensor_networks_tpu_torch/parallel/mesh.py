@@ -10,9 +10,10 @@ hybrid mesh.  The caller initializes the default group
 (``torch.distributed.init_process_group``); nothing here creates one.
 
 The collectives of the layer go through the helpers below: ``all_reduce``
-stands for ``lax.psum`` (its calls counted in ``all_reduce.calls``, which
-the card's smoke test reads), a ``batch_isend_irecv`` hop for
-``lax.ppermute``, ``broadcast`` for the replicate-from-one-device psum.
+stands for ``lax.psum``, a ``batch_isend_irecv`` hop for ``lax.ppermute``,
+``broadcast`` for the replicate-from-one-device psum; each counts its
+calls (``all_reduce.calls``, ``hop.calls``, ``broadcast.calls``), which
+the card's smoke test reads.
 Peers and sources are global ranks (``dist.get_global_rank``): on a 2-D
 mesh the model group's rank 1 is not global rank 1.
 """
@@ -34,12 +35,18 @@ def _device_type(devices) -> str:
     return torch.device(devices).type
 
 
-def _grid(shape: Sequence[int], what: str) -> torch.Tensor:
+def require_group() -> None:
+    """Raise unless this process holds the default process group: the
+    layer runs on its ranks and never falls back to one device."""
     if not dist.is_initialized():
         raise RuntimeError(
             "a mesh spans the ranks of the default process group: call "
             "torch.distributed.init_process_group first"
         )
+
+
+def _grid(shape: Sequence[int], what: str) -> torch.Tensor:
+    require_group()
     n = int(np.prod(shape))
     world = dist.get_world_size()
     if n > world:
@@ -199,16 +206,27 @@ def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
     """Every member gets member ``src``'s ``x`` (``_replicate_from``)."""
     out = x.clone(memory_format=torch.contiguous_format)
     dist.broadcast(out, src=peer(group, src), group=group)
-    return out
+    broadcast.calls += 1
+    # in this rank's own layout of x: an einsum's bits can follow its
+    # operands' strides, and a replicated carry must be the stage's own
+    return out if x.is_contiguous() else torch.empty_like(x).copy_(out)
+
+
+broadcast.calls = 0
 
 
 def hop(group, sends, recvs) -> None:
     """One batched neighbour exchange: ``sends`` and ``recvs`` are lists of
-    (tensor, member index); the received tensors are filled in place."""
+    (tensor, member index); the received tensors are filled in place.
+    ``hop.calls`` counts the exchanges that moved a tensor on this rank."""
     ops = [dist.P2POp(dist.isend, t.contiguous(), peer(group, i), group)
            for t, i in sends]
     ops += [dist.P2POp(dist.irecv, t, peer(group, i), group) for t, i in recvs]
     if not ops:
         return
+    hop.calls += 1
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+
+
+hop.calls = 0

@@ -25,6 +25,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from tensor_networks_tpu_torch.ops.als import _scan
 from tensor_networks_tpu_torch.ops.fast import (
     _TINY,
     _bond_bounds,
@@ -47,19 +48,54 @@ def _replicate_from(x: torch.Tensor, mesh: DeviceMesh, src: int) -> torch.Tensor
     return pm.broadcast(x, mesh.get_group("model"), src)
 
 
-def _scan(scan_fn, carry, xs, reverse: bool):
-    """``jax.lax.scan`` as a loop: ``scan_fn(carry, x) -> (carry, y)`` over the
-    leading axis of the tuple ``xs``; the ys stacked in block order (None
-    for an empty block or a step that emits nothing)."""
-    steps = range(xs[0].shape[0])
-    ys = [None] * len(steps)
-    for j in (reversed(steps) if reverse else steps):
-        carry, ys[j] = scan_fn(carry, tuple(x[j] for x in xs))
-    if not ys or ys[0] is None:
-        return carry, None
-    if isinstance(ys[0], tuple):
-        return carry, tuple(torch.stack(y) for y in zip(*ys))
-    return carry, torch.stack(ys)
+def _replicate_all(xs, mesh: DeviceMesh, src: int):
+    """:func:`_replicate_from` of each tensor of a tuple."""
+    return tuple(_replicate_from(x, mesh, src) for x in xs)
+
+
+def _agree(mesh: DeviceMesh, value) -> float:
+    """Model rank 0's value (a 0-d tensor or a host number) as a host
+    float on every model rank: a decision every rank must take alike (a
+    shift, a squaring count, a ladder's test) comes from one source."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.tensor(float(value), dtype=torch.float64, device=pm.mesh_device(mesh))
+    return float(_replicate_from(value.reshape(()), mesh, 0))
+
+
+def _memory_order(t: torch.Tensor):
+    """The dims of ``t`` from the largest stride down: ``t.permute`` of
+    them is contiguous for a dense tensor."""
+    return sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
+
+
+def _inverse(order):
+    inv = [0] * len(order)
+    for k, i in enumerate(order):
+        inv[i] = k
+    return inv
+
+
+def _carry_orders(mesh: DeviceMesh, key, carry, out, stage: int):
+    """The memory order of each tensor of a chain's hopped carry, the
+    sending stage's.  A hop sends each tensor in its memory order and
+    the receiver rebuilds the sender's strides: an einsum's bits can
+    follow its operands' layout (the frame-Gram env is a transposed
+    one), and a staged sweep must hand the next stage exactly what the
+    fused loop hands its next core.  A chain's layout depends only on
+    its body and shapes, so it is broadcast once a mesh (one host read)
+    and kept on the mesh."""
+    known = mesh.__dict__.setdefault("_tnt_carry_orders", {})
+    if key not in known:
+        flat = ([i for c in out for i in _memory_order(c)] if out is not None
+                else [0] * sum(c.dim() for c in carry))
+        flat = _replicate_from(torch.tensor(flat, dtype=torch.int64,
+                                            device=pm.mesh_device(mesh)), mesh, stage).tolist()
+        orders, k = [], 0
+        for c in carry:
+            orders.append(flat[k:k + c.dim()])
+            k += c.dim()
+        known[key] = orders
+    return known[key]
 
 
 def _staged_sweep(mesh: DeviceMesh, chains):
@@ -69,28 +105,39 @@ def _staged_sweep(mesh: DeviceMesh, chains):
     Each chain is ``(reverse, carry, blocks, scan_fn)``: its stages are
     the model ranks, left to right (right to left with ``reverse``); the
     first stage starts from ``carry`` (a tuple of tensors), each runs
-    :func:`_scan` of ``scan_fn`` over its local ``blocks`` and hands the
-    carry to the next.  Several chains advance together, one stage each
-    per step, with one batched hop a step.  A rank computes only its own
-    stages.  Returns, per chain, ``(carry in, carry out, ys)`` of this
-    rank's stage: on the last stage, carry out is the sweep's result."""
+    ``ops.als._scan`` of ``scan_fn`` over its local ``blocks`` and hands
+    the carry to the next, in the sender's layout (:func:`_carry_orders`).
+    Several chains advance together, one stage each per step, with one
+    batched hop a step.  A rank computes only its own stages.  Returns,
+    per chain, ``(carry in, carry out, ys)`` of this rank's stage, the ys
+    a list in block order: on the last stage, carry out is the sweep's
+    result."""
     group, parts, me = _model(mesh)
     carries = [tuple(c[1]) for c in chains]
     outs = [None] * len(chains)
     for t in range(parts):
-        sends, recvs = [], []
+        sends, recvs, pending = [], [], []
         for i, (reverse, _, blocks, scan_fn) in enumerate(chains):
             stage, shift = (parts - 1 - t, -1) if reverse else (t, 1)
+            out = None
             if me == stage:
                 out, ys = _scan(scan_fn, carries[i], blocks, reverse)
                 outs[i] = (carries[i], out, ys)
-                if t < parts - 1:
-                    sends += [(c, stage + shift) for c in out]
+            if t == parts - 1:
+                continue
+            key = (scan_fn.__qualname__, reverse,
+                   tuple((tuple(c.shape), c.dtype) for c in carries[i]))
+            orders = _carry_orders(mesh, key, carries[i], out, stage)
+            if me == stage:
+                sends += [(c.permute(o), stage + shift) for c, o in zip(out, orders)]
             elif me == stage + shift:
-                carries[i] = tuple(torch.empty_like(c, memory_format=torch.contiguous_format)
-                                   for c in carries[i])
-                recvs += [(c, stage) for c in carries[i]]
+                bufs = [c.new_empty([c.shape[j] for j in o])
+                        for c, o in zip(carries[i], orders)]
+                recvs += [(b, stage) for b in bufs]
+                pending.append((i, bufs, orders))
         pm.hop(group, sends, recvs)
+        for i, bufs, orders in pending:
+            carries[i] = tuple(b.permute(_inverse(o)) for b, o in zip(bufs, orders))
     return outs
 
 
@@ -119,24 +166,64 @@ def tt_right_orth_sharded(mesh: DeviceMesh, mids: torch.Tensor, last: torch.Tens
     [(_, (carry,), out)] = _staged_sweep(
         mesh, [(True, (rl.T,), (mids,), _local_right_orth_step)]
     )
-    return _replicate_from(carry, mesh, 0), out, ql.T.contiguous()
+    return _replicate_from(carry, mesh, 0), torch.stack(out), ql.T.contiguous()
+
+
+def _own_slice(mesh: DeviceMesh, count: int) -> slice:
+    """This model rank's block of ``count`` middle cores."""
+    parts, me = pm.axis_size(mesh, "model"), pm.axis_index(mesh, "model")
+    if count % parts != 0:
+        raise ValueError(
+            f"train sharding needs the middle-core count ({count}) "
+            f"divisible by the model axis ({parts}); pad the train or "
+            "choose a different mesh"
+        )
+    blk = count // parts
+    return slice(me * blk, (me + 1) * blk)
+
+
+def _block(mesh: DeviceMesh, mids, count: int) -> torch.Tensor:
+    """This rank's block of stacked middle cores, on its device: ``mids``
+    holds all ``count`` of them (the same on every rank; sliced here, as
+    the JAX package's ``device_put`` shards a global array) or is
+    already this rank's block (a solver's result)."""
+    mids = torch.as_tensor(mids)
+    if mids.shape[0] == count:
+        mids = mids[_own_slice(mesh, count)]
+    elif mids.shape[0] * pm.axis_size(mesh, "model") != count:
+        raise ValueError(
+            f"{mids.shape[0]} middle cores are neither the train's {count} "
+            "nor this rank's block of them"
+        )
+    return mids.to(pm.mesh_device(mesh)).contiguous()
+
+
+def _norm_sharded(mesh: DeviceMesh, first, mids, last) -> torch.Tensor:
+    """Backward-stable norm of a train-sharded train
+    (``tensor_networks_tpu/parallel/als.py:262``): the distributed
+    right-orthogonalization, then the norm of the folded first core --
+    ``packed.norm_exact``'s contract, never the cancelling zipper.  The
+    same 0-d tensor on every rank (model rank 0's)."""
+    carry, _, _ = tt_right_orth_sharded(mesh, mids, last)
+    return _replicate_from(torch.linalg.norm(first @ carry), mesh, 0)
+
+
+def _place(mesh: DeviceMesh, *stacks):
+    """This rank's block of each global middle-core stack (NumPy or
+    tensors of one length, the same on every rank), on its device; None
+    stays None."""
+    own = _own_slice(mesh, torch.as_tensor(stacks[0]).shape[0])
+    dev = pm.mesh_device(mesh)
+    return tuple(None if t is None else torch.as_tensor(t)[own].to(dev).contiguous()
+                 for t in stacks)
 
 
 def place_train_sharded(mesh: DeviceMesh, mids, last):
     """This rank's block of the middle cores and the whole last core, on
     its device (``tensor_networks_tpu/parallel/sweeps.py:162``).  Takes the
     global cores (NumPy or tensors, the same on every rank)."""
-    parts, me = pm.axis_size(mesh, "model"), pm.axis_index(mesh, "model")
-    mids, last = torch.as_tensor(mids), torch.as_tensor(last)
-    if mids.shape[0] % parts != 0:
-        raise ValueError(
-            f"train sharding needs the middle-core count ({mids.shape[0]}) "
-            f"divisible by the model axis ({parts}); pad the train or "
-            "choose a different mesh"
-        )
-    blk = mids.shape[0] // parts
-    dev = pm.mesh_device(mesh)
-    return mids[me * blk:(me + 1) * blk].to(dev).contiguous(), last.to(dev)
+    (mids,) = _place(mesh, mids)
+    return mids, torch.as_tensor(last).to(pm.mesh_device(mesh))
 
 
 def _zip_step(w, x):
@@ -243,7 +330,7 @@ def tt_gram_round_sharded(mesh: DeviceMesh, first, mids, last, eps: float, bound
     )
     # the forward step at local core j needs the Gram right of it: the
     # backward scan's output at j + 1, the stage's entry carry at the end
-    gr_local = torch.cat([grams[1:], g_in[0][None]])
+    gr_local = grams[1:] + [g_in[0]]
     g_bond0 = _replicate_from(g_out, mesh, 0)
     norm = torch.sqrt(torch.abs(torch.sum((first @ g_bond0) * first)))
     budget = eps * norm / math.sqrt(d - 1.0)
@@ -262,9 +349,10 @@ def tt_gram_round_sharded(mesh: DeviceMesh, first, mids, last, eps: float, bound
         return (nxt, k), ((mat @ curr).reshape(rr, n, rc), k)
 
     own = bounds[1 + me * blk:1 + (me + 1) * blk]
-    [(_, (nxt_last, _), (mids_out, ranks))] = _staged_sweep(
+    [(_, (nxt_last, _), ys)] = _staged_sweep(
         mesh, [(False, (nxt0, k0), (mids, gr_local, own), fwd_step)]
     )
+    mids_out, ranks = (torch.stack(c) for c in zip(*ys))
     nxt_last = _replicate_from(nxt_last, mesh, parts - 1)
     return first @ curr0, mids_out, nxt_last @ last, k0, ranks
 
@@ -359,8 +447,8 @@ def _prefix_sharded(mesh, first, mids, last, bounds, eps, sign_iters, chain_prec
     (g_in,), _, gs = g_chain
     # this rank's bonds base .. base + L: H at the block's entry, then
     # after each core; G after each core, then at the block's exit
-    h_b = torch.cat([h_in[None], hs]).to(dt)
-    g_b = torch.cat([gs, g_in[None]]).to(dt)
+    h_b = torch.stack([h_in] + hs).to(dt)
+    g_b = torch.stack(gs + [g_in]).to(dt)
 
     norm2 = torch.einsum("kab,kba->k", h_b, g_b)
     eps_b = torch.as_tensor(eps, dtype=dt, device=first.device)

@@ -1006,3 +1006,69 @@ def test_sharded_rounding_against_the_single_device_sweeps(dev, one_rank_nccl):
         assert [int(k0)] + ks.tolist() == tt_round_fixed(net, 1e-6, method=method)[1] == [6] * 11
         got = tpk.evaluate(tpk.PackedTT(fo, mo, lo), idx)
         assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-10, method
+
+
+def _dense_on_host(t):
+    first, mids, last = (x.double().cpu().numpy() for x in t)
+    v = first
+    for core in mids:
+        v = np.einsum("ar,rnb->anb", v, core).reshape(-1, core.shape[-1])
+    return (v @ last).reshape(-1)
+
+
+def _solver_pair(name, dev):
+    """(the train-sharded call on a mesh, the fused call) at K=8 in f64 on
+    the card."""
+    import tensor_networks_tpu_torch as tnt
+    from tensor_networks_tpu_torch import parallel as par
+
+    K = 8
+    op = tnt.qtt_screened_laplacian(K, delta=1.0, device=dev)
+    rhs = tnt.qtt_exponential(K, c=3.0, device=dev)
+    x0 = tpk.pad_rank(rhs, 6)
+    A = tnt.qtt_tridiagonal(K, 2.0, -1.0, -1.0, device=dev)
+    kw_l = dict(sweeps=2, tol=-1.0, dense_limit=0, lanczos_iters=12)
+    return {
+        "als": (lambda m: par.als_solve_sharded(m, op, rhs, x0, sweeps=2, tol=0.0, spd=True),
+                lambda: tnt.als_solve(op, rhs, x0, sweeps=2, tol=0.0, spd=True)),
+        "als_adaptive": (
+            lambda m: par.als_solve_adaptive_sharded(m, op, rhs, eps=1e-10, rank=2, max_rank=8,
+                                                     spd=True, enrich=False),
+            lambda: tnt.als_solve_adaptive(op, rhs, eps=1e-10, rank=2, max_rank=8, spd=True,
+                                           enrich=False)),
+        "eigsh": (lambda m: par.als_eigsh_sharded(m, op, x0, sweeps=3),
+                  lambda: tnt.als_eigsh(op, x0, sweeps=3)),
+        "eigsh_lanczos": (lambda m: par.als_eigsh_sharded(m, op, x0, **kw_l),
+                          lambda: tnt.als_eigsh(op, x0, **kw_l)),
+        "eigsh_k": (lambda m: par.als_eigsh_k_sharded(m, op, x0, 2, sweeps=3),
+                    lambda: tnt.als_eigsh_k(op, x0, 2, sweeps=3)),
+        "tdvp": (lambda m: par.evolve_tdvp_sharded(m, A, tpk.pad_rank(rhs, 4), 0.03, 2),
+                 lambda: tnt.evolve_tdvp(A, tpk.pad_rank(rhs, 4), 0.03, 2)),
+        "tdvp2": (lambda m: par.evolve_tdvp2_sharded(m, op, rhs, 0.05, 2, max_rank=6, eps=1e-10),
+                  lambda: tnt.evolve_tdvp2(op, rhs, 0.05, 2, max_rank=6, eps=1e-10)),
+        "theta": (lambda m: par.evolve_theta_sharded(m, op, x0, 0.01, 2, theta=1.0, spd=True),
+                  lambda: tnt.evolve_theta(op, x0, 0.01, 2, theta=1.0, spd=True)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["als", "als_adaptive", "eigsh", "eigsh_lanczos", "eigsh_k",
+                                  "tdvp", "tdvp2", "theta"])
+def test_sharded_solvers_against_the_fused_ones_on_one_rank(dev, one_rank_nccl, name):
+    """Each train-sharded solver on a (1, 1) NCCL mesh against the fused
+    single-device solver at the same knobs, both on the card in f64: the
+    represented tensors and every record to 1e-10 relative (residuals at
+    roundoff, ~1e-14, to 1e-13 absolute: cuBLAS may round the two
+    forms' einsums differently), the same two-site ranks; the results
+    stay on the card."""
+    from tensor_networks_tpu_torch.parallel import make_mesh
+
+    sharded, fused = _solver_pair(name, dev)
+    got, ref = sharded(make_mesh((1, 1))), fused()
+    if name == "eigsh_k":
+        got, ref = (got[0][0],) + tuple(got[1:]), (ref[0][0],) + tuple(ref[1:])
+    assert got[0].mids.device == dev
+    a, b = _dense_on_host(got[0]), _dense_on_host(ref[0])
+    assert np.linalg.norm(a - b) <= 1e-10 * np.linalg.norm(b), name
+    for x, y in zip(got[1:], ref[1:]):
+        np.testing.assert_allclose(np.asarray(x, np.float64), np.asarray(y, np.float64),
+                                   rtol=1e-10, atol=1e-13)
