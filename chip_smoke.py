@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``tensor_networks_tpu_torch/kernels/csrc``,
 checks that the package's constructors default to the card, then runs
-thirteen phases:
+fourteen phases:
 
 1. every kernel against its plain PyTorch version on the card, in float32
    and float64, at the main path's shapes and at odd ones, with a
@@ -184,13 +184,34 @@ thirteen phases:
    broadcasts and hops, peak memory both ways, and every bar: phases
    8-9's, and the sharded run against the fused one (1e-9 relative in
    f64, 1e-4 in f32; the same two-site ranks).
+14. the example scripts (``examples_torch/``) and the scaling probe
+   (``tools/scaling_probe_torch.py``) on the card, TF32 off, each leg
+   with the launch counters reset just before and read just after and
+   the card's busy share sampled by NVML (``nvidia-smi``'s
+   ``utilization.gpu``: the profiler's host cost per launch tripled
+   these legs' walls), held to its JAX script's bars: (a)
+   ``qtt_stretch`` (d=30, n=2, rank 16, f32: both inner products, 1,000
+   points, ``tt_svd_round`` of ``a + a``); (b) ``qtt_fit_coefficient``'s
+   Newton solve at its size (K=8, rank 2, 12 steps) for 3 iterations,
+   each timed as forward, backward and double backward, the first
+   iterate's gradient and curvature against central differences (1e-6)
+   and the loss falling; (c) ``qtt_heat``'s Richardson study (K=22);
+   (d) ``qtt_screened_poisson``'s 2D (15 bits an axis, 2 sweeps) and 3D
+   legs; (e)
+   ``qtt_ground_state``'s first excited level (32^3); (f)
+   ``distributed_solvers`` at K=10 in a one-rank NCCL group; (g) the
+   probe at d=10 and 200 (n=32) and at d=50, n=512 (r=100), best of 2
+   runs: H1 on two packed trains beside its plain version and the
+   public ``tt_inner_fast`` call, and the prefix rounding.  Each leg's
+   wall, busy share and H1/H2 launches; H1 and H2 must each launch.
 
 Then a JSON line with phase 4's numbers, one with phase 5's, one with
 phase 6's, one with phase 7's, one with phase 8's, one with phase 9's,
 one with phase 10's (``slice12``), one for each leg of phase 11
 (``search_11a``, ``search_11b``, ``search_11c``), of phase 12
-(``parallel_12a`` to ``parallel_12d``) and of phase 13
-(``parallel_solvers_13a_...`` and so on), one with per-kernel results,
+(``parallel_12a`` to ``parallel_12d``), of phase 13
+(``parallel_solvers_13a_...`` and so on) and of phase 14
+(``examples_14a_stretch`` and so on), one with per-kernel results,
 the card's name and power limit from ``nvidia-smi``, and, last, the
 result line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -213,10 +234,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tensor_networks_tpu_torch.kernels.bounds import FP32_FLOP_PER_S
+from tensor_networks_tpu_torch.kernels.bounds import bound as _bound
+from tensor_networks_tpu_torch.kernels.bounds import inner_bound as _inner_bound
+
 SEED = 1234
 D, N, R, B = 50, 32, 100, 8192
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores, published
 
 
 def _rand(g, *shape, scale=1.0, dtype=torch.float32):
@@ -629,25 +652,6 @@ def phase_main_path(zp, ev, dev):
 
 def stack(p):
     return p.first, p.mids, p.last
-
-
-def _bound(flops, nbytes):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def _inner_bound(a, b):
-    """The zipper's bound: W0 = fa^T fb, two GEMMs per core pair, the
-    epilogue <W, la lb^T>; every core read once, one scalar written."""
-    n0, ra = a[0].shape
-    rb = b[0].shape[1]
-    d_mid, _, n, _ = a[1].shape
-    nl = a[2].shape[1]
-    flops = 2 * n0 * ra * rb + d_mid * (2 * rb * n * ra * ra + 2 * ra * rb * rb * n)
-    flops += 2 * ra * rb * nl + 2 * ra * rb
-    nbytes = sum(x.numel() * x.element_size() for x in a + b) + a[0].element_size()
-    return _bound(flops, nbytes)
 
 
 def _evaluate_bound(cores, idx):
@@ -4314,6 +4318,159 @@ def phase_parallel_solvers(zp, ev, dev):
     return launches
 
 
+#: phase 14's cuts (widths as published): the Newton solve 3 iterations
+#: (the example runs until the loss is below 1e-22: 9); the 2D Poisson
+#: solve 2 sweeps (8); the probe 3 of its 6 points, best of 2 runs (4)
+EX_NEWTON_ITERS, EX_POISSON_2D_SWEEPS, EX_PROBE_REPS = 3, 2, 2
+EX_PROBE_POINTS = ("d10_n32_r100", "d200_n32_r100", "d50_n512_r100")
+#: the Newton leg's autograd against central differences, relative
+EX_FD_BAR = 1e-6
+
+
+class _Utilization:
+    """The card's busy share over a block, from NVML: ``nvidia-smi``
+    samples ``utilization.gpu`` (the share of its sample period, 1/6 s to
+    1 s, in which a kernel ran) every 100 ms in a child process that the
+    block's end stops.  Unlike torch.profiler it adds no host work to a
+    launch, so a leg of 1e5-1e6 kernels runs at its own speed."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-i", "0", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        try:
+            out, _ = self._proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            out, _ = self._proc.communicate()
+        samples = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+        self.share = sum(samples) / len(samples) / 100 if samples else None
+        self.samples = len(samples)
+        return False
+
+
+def _example_leg(zp, ev, call):
+    """One leg of phase 14: ``call()`` with the launch counters reset just
+    before and read just after; its result, wall (host clock), busy share
+    (NVML) and launches."""
+    _reset_counts(zp, ev)
+    with _Utilization() as util:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, {"wall_s": wall, "busy_share": util.share, "busy_samples": util.samples,
+                 "launches": _counts(zp, ev)}
+
+
+def _newton_leg(dev):
+    """14b: the differentiable-simulation Newton solve at its published
+    size for EX_NEWTON_ITERS iterations: each one's forward, backward and
+    double backward, the first iterate's gradient and curvature against
+    central differences, and the loss falling."""
+    from examples_torch import qtt_fit_coefficient as fit
+
+    loss, _ = fit.fit_problem(device=dev)
+    c, parts = 0.4, []
+    for _ in range(EX_NEWTON_ITERS):
+        parts.append(fit.newton_parts(loss, c, dev))
+        c = parts[-1]["c_next"]
+    fd = fit.central_differences(loss, 0.4, dev)
+    errs = [abs(parts[0][k] - f) / abs(f) for k, f in zip(("grad", "curv"), fd)]
+    losses = [p["loss"] for p in parts]
+    if not (max(errs) <= EX_FD_BAR and all(b < a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"phase 14 14b: autograd against differences {errs}, "
+                             f"losses {losses}")
+    return {"c": c, "losses": losses, "fd_rel_err": errs, "iterations": parts}
+
+
+def phase_examples(zp, ev, dev):
+    """Phase 14 (14a-14g): the example scripts of ``examples_torch/`` and
+    the scaling probe on the card, TF32 off, each leg with the launch
+    counters reset just before and read just after and its busy share
+    sampled, held to its JAX script's bars (the scripts assert them); one
+    JSON line a leg; then H1 and H2 at 14a's shapes against their plain
+    versions.  Returns H1's and H2's launches in each leg, and each
+    kernel's rows (14a's and the probe's points) for the kernels line."""
+    import importlib.util
+
+    from examples_torch import (
+        distributed_solvers,
+        qtt_ground_state,
+        qtt_heat,
+        qtt_screened_poisson,
+        qtt_stretch,
+    )
+
+    spec = importlib.util.spec_from_file_location("scaling_probe_torch", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools", "scaling_probe_torch.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 14 runs with TF32 off")
+    print("phase 14 the examples on the card:")
+    t0 = time.perf_counter()
+    configs = tuple(c for c in probe.CONFIGS if c[0] in EX_PROBE_POINTS)
+    legs = (
+        ("14a_stretch", lambda: qtt_stretch.main(30, 16, device=dev)),
+        ("14b_newton", lambda: _newton_leg(dev)),
+        ("14c_heat", lambda: qtt_heat.main(device=dev)),
+        ("14d_poisson_2d",
+         lambda: qtt_screened_poisson.solve_2d(15, 12, dev, sweeps=EX_POISSON_2D_SWEEPS)),
+        ("14d_poisson_3d", lambda: qtt_screened_poisson.solve_3d(4, dev)),
+        ("14e_excited", lambda: qtt_ground_state.excited_3d(5, dev)),
+        ("14f_distributed", lambda: distributed_solvers.main(10, device=dev)),
+        ("14g_probe", lambda: probe.probe(configs, dev, reps=EX_PROBE_REPS)),
+    )
+    launches, outs = {}, {}
+    for name, call in legs:
+        out, row = _example_leg(zp, ev, call)
+        launches[name], outs[name] = row["launches"], out
+        keep = {k: v for k, v in out.items()  # numbers; no trains, no point arrays
+                if isinstance(v, (int, float, list, dict, tuple, str)) and not k.startswith("x_")}
+        busy = "not measured" if row["busy_share"] is None else f"{100 * row['busy_share']:.1f}%"
+        print(f"  {name}: wall {row['wall_s']:.2f} s, busy {busy} (NVML, "
+              f"{row['busy_samples']} samples), H1 {row['launches']['zipper']} + chain "
+              f"{row['launches']['chain']}, H2 {row['launches']['evaluate']}")
+        print(json.dumps({f"examples_{name}": _sig(dict(
+            {k: row[k] for k in ("wall_s", "busy_share")},
+            launches={k: row["launches"][k] for k in ("zipper", "chain", "evaluate")},
+            result=keep))}, separators=(",", ":"), default=float))
+    h1 = sum(c["zipper"] + c["chain"] for c in launches.values())
+    h2 = sum(c["evaluate"] for c in launches.values())
+    if not (h1 >= 1 and h2 >= 1):
+        raise AssertionError(f"phase 14: H1 {h1}, H2 {h2} launches (each must run)")
+    at = _stretch_kernels(zp, ev, dev, outs["14a_stretch"]["points"])
+    print(f"  14a's kernels at their shapes (d=30, n=2, r=16, 1,000 points): "
+          + "; ".join(f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                      f"{r['bound_ms']:.2e}, {r['rel_err']:.1e} of scale)" for k, r in at.items()))
+    kernels = {"h1": {"14a": at["h1"]}, "h2": {"14a": at["h2"]}}
+    for name, p in outs["14g_probe"]["points"].items():
+        kernels["h1"][f"14g_{name}"] = {"ms": p["inner_ms"], "plain_ms": p["plain_ms"],
+                                        "bound_ms": p["bound_ms"], "max_abs_err": p["inner_abs_err"]}
+    wall = time.perf_counter() - t0
+    print(f"  phase 14 wall {wall:.1f} s; H1 {h1}, H2 {h2} launches")
+    return launches, kernels
+
+
+def _stretch_kernels(zp, ev, dev, pts):
+    """H1 and H2 at 14a's shapes (the example's two trains, its 1,000
+    points) against their plain versions, timed in turns P K K P."""
+    from examples_torch import qtt_stretch
+    from tensor_networks_tpu_torch import Index
+    from tensor_networks_tpu_torch.ops.packed import PackedTT
+
+    rng = np.random.RandomState(0)
+    inds = [Index(f"q{i}", 2) for i in range(30)]
+    x, y = (PackedTT(*(torch.from_numpy(c).to(dev) for c in (cs[0], np.stack(cs[1:-1]), cs[-1])))
+            for cs in (qtt_stretch.tt_cores(inds, 16, rng) for _ in range(2)))
+    return _h1_h2_at(zp, ev, x, y, torch.from_numpy(pts).to(dev))
+
+
 def _sig(x):
     """``x`` with every float cut to 4 significant digits (the kernels
     line must stay near 2 KB; the phase lines print the full values)."""
@@ -4333,14 +4490,15 @@ GROUP_COLS = ("ms", "plain_ms", "bound_ms", "max_abs_err")
 def _kernel_numbers(t):
     """The measured part of a kernel's entry; no single PyTorch call
     computes a chain of d-2 dependent steps or the tile list, so
-    library_ms is null.  Rows for other dtypes and shapes (phases 3 and
-    5-9) keep their times, bound and error, each row a list under the
+    library_ms is null.  Rows for other dtypes and shapes (phases 3,
+    5-9 and 14) keep their times, bound and error, each row a list under the
     entry's ``group_cols`` (the line stays under 5 KB); evaluate_ensemble's
     one call (phase 5) keeps its own keys."""
     out = {"max_abs_err": t["max_abs_err"], "ms": t["ms"],
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
-    groups = [g for g in ("by_dtype", "large", "gmres", "solvers", "evolve") if g in t]
+    groups = [g for g in ("by_dtype", "large", "gmres", "solvers", "evolve", "examples")
+              if g in t]
     if groups:
         out["group_cols"] = list(GROUP_COLS)
     for group in groups:
@@ -4415,6 +4573,8 @@ def main() -> int:
     slice_launches["search"] = phase_search(zp, ev, dev)
     slice_launches["parallel"] = phase_parallel(zp, ev, dev)
     slice_launches["parallel_solvers"] = phase_parallel_solvers(zp, ev, dev)
+    slice_launches["examples"], ex_kernels = phase_examples(zp, ev, dev)
+    times["inner"]["examples"], times["evaluate"]["examples"] = ex_kernels["h1"], ex_kernels["h2"]
 
     kernels = [
         {"name": "tt_inner_cuda", "route": "cuda",

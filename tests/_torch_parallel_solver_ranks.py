@@ -8,7 +8,9 @@ scenario on every rank in one order: each train-sharded solver on the
 fused single-device solver.  Rank 0 writes what the scenarios gathered
 as NumPy arrays; a rank that fails writes its traceback beside them.
 The systems are the JAX suite's (``tests/test_sweeps.py:266-410``): K=10,
-so 8 middle cores, 2 a rank.
+so 8 middle cores, 2 a rank.  :func:`run_example_rank` is the rank side
+of ``tests/test_torch_examples.py``: the two distributed example scripts
+in a group of any size.
 """
 
 import datetime
@@ -336,17 +338,17 @@ SCENARIOS = (
 )
 
 
-def run_rank(rank: int, store_path: str, out_dir: str) -> None:
-    """Run every scenario; ranks 0 (the P=4 and P=1 results) and 1 (the
-    fused solvers') each write ``results_<rank>.pkl``."""
+def _in_group(rank: int, world: int, store_path: str, out_dir: str, work) -> None:
+    """Join a ``world``-rank gloo group through a ``FileStore``, run
+    ``work()``, and on ranks 0 and 1 write what it returned as
+    ``results_<rank>.pkl``; a rank that fails writes its traceback as
+    ``error_<rank>.txt`` instead."""
     torch.set_num_threads(1)
     try:
         dist.init_process_group(
-            "gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
-            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
-        m4 = make_mesh((1, 4), devices="cpu")
-        one = make_mesh((1, 1), devices="cpu")  # every rank builds it; rank 0 uses it
-        results = {name: fn(m4, one) for name, fn in SCENARIOS}
+            "gloo", store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=60))
+        results = work()
         if rank in (0, 1):
             with open(os.path.join(out_dir, f"results_{rank}.pkl"), "wb") as f:
                 pickle.dump(results, f)
@@ -355,3 +357,28 @@ def run_rank(rank: int, store_path: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"error_{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def run_rank(rank: int, store_path: str, out_dir: str) -> None:
+    """Run every scenario; ranks 0 (the P=4 and P=1 results) and 1 (the
+    fused solvers') each write ``results_<rank>.pkl``."""
+    def work():
+        m4 = make_mesh((1, 4), devices="cpu")
+        one = make_mesh((1, 1), devices="cpu")  # every rank builds it; rank 0 uses it
+        return {name: fn(m4, one) for name, fn in SCENARIOS}
+
+    _in_group(rank, WORLD, store_path, out_dir, work)
+
+
+def run_example_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """The two distributed example scripts (``examples_torch/``) at small
+    sizes on this rank of a ``world``-rank group: the solvers at K=6, the
+    regression at d=4 for 10 steps.  Ranks 0 and 1 write what each
+    ``main`` returned."""
+    from examples_torch import distributed_solvers, tt_regression_multichip
+
+    def work():
+        return {"solvers": distributed_solvers.main(K=6, device=CPU),
+                "regression": tt_regression_multichip.main(d=4, steps=10, device=CPU)}
+
+    _in_group(rank, world, store_path, out_dir, work)
